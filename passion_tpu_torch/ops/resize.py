@@ -1,0 +1,24 @@
+"""Trilinear upsampling (counterpart of `passion_tpu/ops/resize.py:50-83`).
+
+The JAX version is plain XLA (per-axis interpolation matrices), pinned to
+torch's `align_corners=True` semantics by tests/test_ops.py, so here it is
+`F.interpolate` itself.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def upsample_trilinear(x: torch.Tensor, scale: int,
+                       align_corners: bool = True) -> torch.Tensor:
+    """Upsample (B, C, H, W, Z) by an integer `scale`; the result is
+    contiguous (B, C, H, W, Z)."""
+    if scale == 1:
+        return x
+    # On CUDA an input whose spatial extent is 1^3 is also channels-last,
+    # and the output may follow that layout; the model's tensors (and the
+    # norm kernels) are contiguous NCDHW.
+    return F.interpolate(x, scale_factor=scale, mode="trilinear",
+                         align_corners=align_corners).contiguous()

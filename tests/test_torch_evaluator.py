@@ -1,0 +1,149 @@
+"""passion_tpu_torch's evaluation against the JAX package's: metrics,
+synthetic data, `run_test_sweep`'s CSV from both engines on two synthetic
+cases (float32: the same rows, Dice within 1e-4), and the
+`python -m passion_tpu_torch.eval` entry point on the CPU."""
+
+import csv
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from passion_tpu import metrics as jmetrics
+from passion_tpu.data.datasets import BratsTest as JaxBratsTest
+from passion_tpu.data.loader import PrefetchLoader
+from passion_tpu.data.synth import make_case as jax_make_case
+from passion_tpu.engine.evaluator import run_test_sweep as jax_run_test_sweep
+from passion_tpu.engine.sliding_window import SlidingWindowSweep as JaxSweep
+from passion_tpu.models import get_model as jax_get_model
+from passion_tpu.models import init_params_host
+from passion_tpu_torch import eval as port_eval
+from passion_tpu_torch import metrics as tmetrics
+from passion_tpu_torch.data.datasets import TEST_TRANSFORMS, BratsTest, \
+    CaseLoader
+from passion_tpu_torch.data.synth import make_case, make_synthetic_dataset
+from passion_tpu_torch.engine.evaluator import run_test_sweep
+from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
+from passion_tpu_torch.interop.jax_weights import mmformer_from_jax_params
+from passion_tpu_torch.models import get_model, init_model
+
+torch.set_num_threads(2)
+PATCH = 16
+KW = dict(basic_dims=4, trans_dim=32, mlp_dim=64, heads=4)
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    root = tmp_path_factory.mktemp("synth_port_eval")
+    make_synthetic_dataset(str(root), n_cases=6, shape=(24, 24, 20), seed=5)
+    return str(root)
+
+
+def _read_csv(path):
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def test_csv_matches_jax_engine(dataset, tmp_path):
+    jm = jax_get_model("mmformer", mask_type="idt", patch_size=PATCH, **KW)
+    params = jax.tree_util.tree_map(
+        np.asarray, init_params_host(jm, seed=0, patch_size=PATCH,
+                                     scale=0.3))
+    tm = get_model("mmformer", mask_type="idt", patch_size=PATCH, **KW)
+    tm.load_state_dict(mmformer_from_jax_params(params), strict=True)
+
+    jax_csv, port_csv = str(tmp_path / "jax.csv"), str(tmp_path / "port.csv")
+    jloader = PrefetchLoader(JaxBratsTest(TEST_TRANSFORMS, root=dataset),
+                             batch_size=1, shuffle=False, num_threads=1)
+    jdice, jhd, _ = jax_run_test_sweep(
+        jloader, JaxSweep(jm, 4, PATCH, window_batch=4,
+                          compute_dtype=jnp.float32), params,
+        csv_name=jax_csv)
+    dice, hd, per_mask = run_test_sweep(
+        CaseLoader(BratsTest(TEST_TRANSFORMS, root=dataset)),
+        SlidingWindowSweep(tm, 4, PATCH, window_batch=4,
+                           compute_dtype=torch.float32, device="cpu"),
+        csv_name=port_csv)
+
+    ref, got = _read_csv(jax_csv), _read_csv(port_csv)
+    assert len(got) == len(ref) == 1 + 15 * 3  # header + 15 x (name, 2 cases)
+    assert got[0] == ref[0] and got[0][-1] == "ET HD95ETPro HD95"
+    assert got[1] == ["flairt1cet1t2"]  # reversed mask order
+    assert len(per_mask) == 15
+    for g, r in zip(got[1:], ref[1:]):
+        assert len(g) == len(r)
+        if len(r) == 1:
+            assert g == r
+            continue
+        # Dice within 1e-4; HD95 within half a voxel (a near-tie voxel may
+        # move one surface point)
+        np.testing.assert_allclose(np.float64(g[:4]), np.float64(r[:4]),
+                                   atol=1e-4)
+        np.testing.assert_allclose(np.float64(g[4:]), np.float64(r[4:]),
+                                   atol=0.5)
+    np.testing.assert_allclose(dice, jdice, atol=1e-4)
+    np.testing.assert_allclose(hd, jhd, atol=0.5)
+
+
+def test_eval_entry_point(dataset, tmp_path):
+    """`python -m passion_tpu_torch.eval` on the CPU (bf16, its serving
+    dtype) writes the same CSV as the engine it wires up."""
+    model = init_model(get_model("mmformer", patch_size=PATCH,
+                                 basic_dims=4), seed=1)
+    ckpt = str(tmp_path / "m.pt")
+    torch.save(model.state_dict(), ckpt)
+    out = tmp_path / "out"
+    port_eval.main(["--resume", ckpt, "--dataroot", dataset, "--datapath",
+                    ".", "--savepath", str(out), "--patch_size",
+                    str(PATCH), "--basic_dims", "4", "--device", "cpu"])
+    ref_csv = str(tmp_path / "ref.csv")
+    run_test_sweep(CaseLoader(BratsTest(TEST_TRANSFORMS, root=dataset)),
+                   SlidingWindowSweep(model, 4, PATCH, device="cpu"),
+                   csv_name=ref_csv)
+    got = _read_csv(out / "mmformer.csv")
+    assert got == _read_csv(ref_csv)
+    scores = np.float64([r for r in got[1:] if len(r) == 8])
+    assert scores.shape == (30, 8) and np.isfinite(scores).all()
+    assert (out / "idt_eval.txt").is_file()
+
+
+def test_eval_requires_resume(tmp_path):
+    with pytest.raises(SystemExit):
+        port_eval.main(["--savepath", str(tmp_path), "--device", "cpu"])
+
+
+def test_dice_and_hd95_match_jax(rng):
+    out = np.stack([jax_make_case((24, 20, 16), rng)[1] for _ in range(2)])
+    tgt = np.stack([jax_make_case((24, 20, 16), rng)[1] for _ in range(2)])
+    out[1, 5:9] = 3  # ET above and below the post-processing threshold
+    ref_sep, ref_ev = jmetrics.dice_class4(jnp.asarray(out), jnp.asarray(tgt))
+    sep, ev = tmetrics.dice_class4(out, tgt)
+    np.testing.assert_allclose(sep, np.asarray(ref_sep), rtol=1e-6)
+    np.testing.assert_allclose(ev, np.asarray(ref_ev), rtol=1e-6)
+    for k in range(2):
+        assert tmetrics.cal_hd95(out[k], tgt[k]) == jmetrics.cal_hd95(
+            out[k], tgt[k])
+    assert tmetrics.cal_hd95(np.zeros((4, 4, 4)), np.zeros((4, 4, 4))) == (
+        0.0, 0.0, 0.0, 0.0)
+
+
+def test_synthetic_cases_match_jax():
+    a = make_case((20, 18, 16), np.random.default_rng(3))
+    b = jax_make_case((20, 18, 16), np.random.default_rng(3))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_brats_test_reads_cases(dataset):
+    ds = BratsTest(TEST_TRANSFORMS, root=dataset)
+    jds = JaxBratsTest(TEST_TRANSFORMS, root=dataset)
+    assert len(ds) == len(jds) == 2
+    item, ref = ds.get(1), jds.get(1)
+    assert item["name"] == ref["name"]
+    for k in ("x", "target"):
+        assert item[k].dtype == ref[k].dtype
+        np.testing.assert_array_equal(item[k], ref[k])
+    with pytest.raises(NotImplementedError):
+        BratsTest("Compose([RandomFlip(0),])", root=dataset)

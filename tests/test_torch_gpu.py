@@ -1,0 +1,102 @@
+"""The port's CUDA kernels on a card: K1 + K2 against their plain PyTorch
+version, and the model's kernel path against its plain-norm path. Marked
+`gpu`; each test decides inside itself whether a card is present and skips
+without one. This file imports torch and the port only (a GPU machine need
+not have JAX), so it runs there without tests/conftest.py, which imports
+JAX:
+
+  python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from passion_tpu_torch.ops import fused_norm as tfn
+
+pytestmark = pytest.mark.gpu
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `python -m pytest "
+                    "tests/test_torch_gpu.py -m gpu --noconftest` on the card "
+                    "(README, PyTorch/CUDA port)")
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    # float32 comparisons run in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.Generator(device="cuda").manual_seed(0)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+@pytest.mark.parametrize("shape,dtype,pg", [
+    ((2, 32, 80, 80, 80), torch.bfloat16, 1),  # sweep scale 1
+    ((2, 64, 40, 40, 40), torch.bfloat16, 1),  # scale 2
+    ((2, 128, 20, 20, 20), torch.bfloat16, 1),  # scale 3
+    ((2, 64, 20, 20, 20), torch.bfloat16, 8),  # phase_group 8
+    ((2, 512, 5, 5, 5), torch.float32, 1),  # 125-element rows: scalar path
+])
+def test_kernels_match_plain(card, shape, dtype, pg):
+    x = (torch.randn(shape, generator=card, device="cuda") * 3 + 1).to(dtype)
+    k1, k2 = tfn.norm_stats.launches, tfn.norm_apply.launches
+    st = tfn.norm_stats(x, phase_group=pg)
+    y = tfn.norm_apply(x, st, phase_group=pg)
+    torch.cuda.synchronize()
+    assert (tfn.norm_stats.launches, tfn.norm_apply.launches) == (k1 + 1,
+                                                                  k2 + 1)
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(st, tfn.norm_stats_plain(x, phase_group=pg),
+                               rtol=1e-4, atol=1e-5)
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(
+        y.float(), tfn.instance_norm_lrelu_plain(x, phase_group=pg).float(),
+        rtol=1e-2, atol=atol)
+
+
+def test_large_mean_against_float64(card):
+    """|mean| >> std at the bound the TPU kernel met (tests/test_ops.py)."""
+    x64 = torch.randn((1, 128, 40, 40, 40), generator=card, device="cuda",
+                      dtype=torch.float64) * 0.5 + 50.0
+    m = x64.mean(dim=(2, 3, 4), keepdim=True)
+    v = ((x64 - m) ** 2).mean(dim=(2, 3, 4), keepdim=True)
+    y64 = (x64 - m) / torch.sqrt(v + 1e-5)
+    y64 = torch.where(y64 >= 0, y64, 0.2 * y64)
+    got = tfn.instance_norm_lrelu(x64.float()).double()
+    torch.testing.assert_close(got, y64, rtol=1e-4, atol=5e-5)
+
+
+def test_runs_repeat_bit_for_bit(card):
+    x = torch.randn((3, 64, 40, 40, 40), generator=card, device="cuda",
+                    dtype=torch.bfloat16)
+    a = tfn.instance_norm_lrelu(x)
+    b = tfn.instance_norm_lrelu(x)
+    assert torch.equal(a, b)
+
+
+def test_model_kernel_path_matches_plain_norm(card, monkeypatch):
+    """A small mmFormer on the card in float32: every norm site through
+    K1 + K2 against the same model with the plain norm (atol 1e-4), and
+    the sweep's premasked split against the plain forward."""
+    from passion_tpu_torch.masks import MASK_ARRAY
+    from passion_tpu_torch.models import get_model, init_model
+
+    net = init_model(get_model("mmformer", patch_size=16, basic_dims=4,
+                               trans_dim=32, mlp_dim=64, heads=4), seed=0)
+    net = net.to("cuda").eval()
+    x = torch.randn((2, 4, 16, 16, 16), generator=card, device="cuda")
+    mask = torch.as_tensor(np.stack([MASK_ARRAY[9]] * 2), device="cuda")
+    with torch.inference_mode():
+        k1 = tfn.norm_stats.launches
+        got = net.fuse_inference(net.features(x), mask)
+        assert tfn.norm_stats.launches - k1 == 18 + 23
+        fwd = net(x, mask)
+        monkeypatch.setattr(tfn, "instance_norm_lrelu",
+                            tfn.instance_norm_lrelu_plain)
+        ref = net.fuse_inference(net.features(x), mask)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got, fwd, rtol=0, atol=1e-5)
