@@ -26,8 +26,27 @@ Phases (each raises on failure; any failure exits non-zero):
      bound, the plain version and one PyTorch library call; the timed
      outputs are held against the plain version.
 
-TF32 stays at torch's default (as `passion_tpu_torch.eval` runs) except
-around the float32 comparisons, where it is off.
+  Training (the sweep's tensors are freed first):
+
+  3b. backward kernels K3/K4 vs their plain version at the training
+     step's shapes, bf16 and float32, the large-mean case against float64,
+     and the autograd Function's gradient against autograd of the plain
+     forward;
+  7. main path: the full-width mmFormer PASSION train step (bs 1, 80^3
+     crop of seeded noise, one-hot labels, mask [T, F, T, T], bf16 over
+     float32 master params, dropout on): untimed steps, then timed steps
+     with K1-K4's launches read around them; steps/s and peak memory;
+     one float32 step (TF32 off) on the kernel path and on the plain-norm
+     path, loss, gradients and updated params held together;
+  7b. profile: torch.profiler over one train step: device busy share and
+     kernel time by name;
+  8. entry point: `passion_tpu_torch.train.main` on synthetic cases at
+     full width, 1 epoch x 2 iterations, then `--resume` for epoch 2;
+  9. K3/K4 timing at the largest training shape, beside the bandwidth
+     bound, the plain version and the library's backward.
+
+TF32 stays at torch's default (as `passion_tpu_torch.eval` and `.train`
+run) except around the float32 comparisons, where it is off.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Weights are random, drawn from a seed; the volume is seeded noise.
@@ -53,12 +72,21 @@ WORK = os.path.join(REPO, "build", "chip_smoke")  # listed in .gitignore
 VOLUME = (240, 240, 155)  # one BraTS case
 WINDOWS = 75  # windows of 80^3 in VOLUME: one chunk at the auto batch
 TOP = 15  # kernels listed per traced phase (4b)
-NORM_KERNELS = ("stats_partial_kernel", "stats_merge_kernel", "apply_kernel")
+NORM_KERNELS = ("stats_partial_kernel", "stats_merge_kernel", "apply_kernel",
+                "bwd_partial_kernel", "bwd_merge_kernel", "bwd_apply_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 OPS_PER_ELEMENT = 4  # K1: sub, add, fma (2); K2: sub, mul, compare, mul
+# K3: sub, mul, round-compare, select-mul, add, fma; K4: those less the
+# sums, plus sub, fma, mul
+OPS_PER_ELEMENT_BWD = 8
 NORM_SITES_ENCODE = 18  # instance_norm_lrelu calls per features() chunk
 NORM_SITES_FUSE = 23  # ... per fuse_inference() chunk
+# per PASSION train step: 14 encoder + 27 five-lane fuse path + 12
+# four-modality sep decoder, each with one backward
+NORM_SITES_TRAIN = 14 + 27 + 12
+TRAIN_STEPS = 5  # timed full-width train steps (after 2 untimed ones)
+KERNELS = ("K1", "K2", "K3", "K4")
 
 
 def log(msg: str) -> None:
@@ -88,8 +116,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def reset_counts(fn) -> None:
-    fn.norm_stats.launches = 0
-    fn.norm_apply.launches = 0
+    for w in fn.WRAPPERS:
+        w.launches = 0
+
+
+def counts(fn) -> dict[str, int]:
+    """Launch counts of K1-K4 (fn.WRAPPERS is in that order)."""
+    return {k: w.launches for k, w in zip(KERNELS, fn.WRAPPERS)}
 
 
 @contextlib.contextmanager
@@ -226,14 +259,15 @@ def phase_main_path(torch, fn, card, err):
     with checked_norm(torch, fn, seen):
         labels = engine.sweep_labels(prepared, masks)
     first_s = time.perf_counter() - t0
-    launches = {"K1": fn.norm_stats.launches, "K2": fn.norm_apply.launches}
+    launches = counts(fn)
     chunks = -(-n_win // prepared["window_batch"])
     expect = chunks * (NORM_SITES_ENCODE + 15 * NORM_SITES_FUSE)
     log(f"  first sweep (cuDNN set-up and the on-path check included) "
-        f"{first_s:.3f} s; launches K1 {launches['K1']}, K2 "
-        f"{launches['K2']} (expected {expect})")
-    if launches != {"K1": expect, "K2": expect}:
-        raise AssertionError(f"launches {launches}, expected {expect} each")
+        f"{first_s:.3f} s; launches {launches} (expected {expect} of K1 "
+        f"and K2, none of K3/K4)")
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
+        raise AssertionError(f"launches {launches}, expected {expect} of "
+                             f"K1 and K2")
     log(f"  on-path check: {len(seen)} distinct norm inputs, each held "
         f"against the plain version on the sweep's own tensor:")
     for (shape, dt, pg), (calls, e1, e2) in seen.items():
@@ -248,8 +282,6 @@ def phase_main_path(torch, fn, card, err):
         if lab.shape != VOLUME or lab.dtype != np.uint8 or lab.max() > 3:
             raise AssertionError(f"bad labels {lab.shape} {lab.dtype} "
                                  f"max {lab.max()}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
     log(f"  labels: 15 x {VOLUME} uint8 in 0..3; class shares of the full "
         f"mask {np.bincount(labels[-1].ravel(), minlength=4) / labels[-1].size}")
 
@@ -309,7 +341,11 @@ def _kernel_times(prof) -> dict[str, tuple[float, int]]:
 
     out = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # user ranges (the optimizer's step) show on the device timeline
+        # too, over kernels already counted: skip them
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False) or e.key.startswith(
+                    "Optimizer."):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:  # older torch
@@ -318,13 +354,32 @@ def _kernel_times(prof) -> dict[str, tuple[float, int]]:
     return out
 
 
+def report_trace(prof, wall_ms: float, label: str, card: str,
+                 top: int = TOP) -> dict:
+    """Log a trace's device busy share, the norm kernels' share and the
+    `top` kernels that take the most device time; return the totals."""
+    kernels = _kernel_times(prof)
+    busy = sum(ms for ms, _ in kernels.values())
+    norm = sum(ms for k, (ms, _) in kernels.items()
+               if any(s in k for s in NORM_KERNELS))
+    log(f"  [{card}] {label}: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms "
+        f"(busy share {busy / wall_ms:.3f}); norm kernels {norm:.3f} ms "
+        f"({norm / max(busy, 1e-9):.3f} of kernel time)")
+    for name, (ms, n) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        log(f"    {ms:9.3f} ms {ms / max(busy, 1e-9):6.3f} x{n:<5d} "
+            f"{name[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, norm_ms=norm)
+
+
 def phase_profile(torch, engine, prepared, card):
     """Phase 4b: torch.profiler over one encode and one fuse pass of the
     main path's case, after its sweeps have set up cuDNN. For
     each: host-clock wall time, summed kernel time and their ratio (the
     device's busy share; the kernels run on one stream, so they do not
     overlap), the share of K1 + K2 and the kernels that take the most
-    device time. Tracing is on only here, so no other phase pays for it."""
+    device time. Tracing is on only here and in 7b, so no other phase pays
+    for it."""
     from torch.profiler import ProfilerActivity, profile
 
     from passion_tpu_torch.masks import MASK_ARRAY
@@ -344,17 +399,7 @@ def phase_profile(torch, engine, prepared, card):
                 engine._labels_device(prepared, fts, mask)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = _kernel_times(prof)
-        busy = sum(ms for ms, _ in kernels.values())
-        norm = sum(ms for k, (ms, _) in kernels.items()
-                   if any(s in k for s in NORM_KERNELS))
-        log(f"  [{card}] {phase}: wall {wall_ms:.3f} ms, kernels "
-            f"{busy:.3f} ms (busy share {busy / wall_ms:.3f}); K1 + K2 "
-            f"{norm:.3f} ms ({norm / max(busy, 1e-9):.3f} of kernel time)")
-        for name, (ms, n) in sorted(kernels.items(),
-                                    key=lambda kv: -kv[1][0])[:TOP]:
-            log(f"    {ms:9.3f} ms {ms / max(busy, 1e-9):6.3f} x{n:<5d} "
-                f"{name[:110]}")
+        report_trace(prof, wall_ms, phase, card)
     del fts
 
 
@@ -428,6 +473,334 @@ def phase_timing(torch, fn, err):
                 b2=b2, by1=by1, by2=by2)
 
 
+def _ulp_bf16(torch, v):
+    """One bf16 ulp at |v| (8 bits of mantissa)."""
+    e = torch.floor(torch.log2(v.abs().float().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_bwd(torch, fn, x, g, pg=1) -> tuple[float, float]:
+    """K3's row sums against the plain version's (rtol 1e-4, atol 1e-5:
+    float sums in another order), and K4's dx against the plain dx from
+    the same row sums: within one bf16 ulp for bf16 (one rounding of
+    values that agree to float32 rounding), 1e-5 for float32. Returns both
+    max abs errors."""
+    st = fn.norm_stats(x, phase_group=pg)
+    b = fn.norm_bwd_stats(x, g, st, phase_group=pg)
+    dx = fn.norm_bwd_apply(x, g, st, b, phase_group=pg)
+    b_p = fn.norm_bwd_stats_plain(x, g, st, phase_group=pg)
+    dx_p = fn.norm_bwd_apply_plain(x, g, st, b, phase_group=pg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(b, b_p, rtol=1e-4, atol=1e-5)
+    diff = (dx.float() - dx_p.float()).abs()
+    if x.dtype == torch.bfloat16:
+        if not (diff <= _ulp_bf16(torch, dx_p) + 1e-6).all():
+            raise AssertionError(f"K4 off by more than one bf16 ulp: "
+                                 f"{diff.max().item():.3g}")
+    else:
+        torch.testing.assert_close(dx, dx_p, rtol=1e-5, atol=1e-5)
+    return (b - b_p).abs().max().item(), diff.max().item()
+
+
+def phase_backward_kernels(torch, fn, err):
+    """Phase 3b: K3/K4 against the plain version at the train step's
+    shapes (tolerances in `check_bwd`), the |mean| >> std case against
+    float64, and the autograd Function against autograd of the plain
+    forward in float32."""
+    g0 = torch.Generator(device="cuda").manual_seed(3)
+    cases = [((5, 32, 80, 80, 80), torch.bfloat16),  # fuse lanes, scale 1
+             ((1, 32, 80, 80, 80), torch.bfloat16),  # encoder, scale 1
+             ((4, 16, 80, 80, 80), torch.bfloat16),  # sep decoder, scale 1
+             ((5, 512, 5, 5, 5), torch.bfloat16),  # RFM5 rows: scalar path
+             ((5, 32, 80, 80, 80), torch.float32),
+             ((5, 512, 5, 5, 5), torch.float32)]
+    for shape, dt in cases:
+        x = (torch.randn(shape, generator=g0, device="cuda") * 3 + 1).to(dt)
+        g = torch.randn(shape, generator=g0, device="cuda").to(dt)
+        e3, e4 = check_bwd(torch, fn, x, g)
+        err["K3"], err["K4"] = max(err["K3"], e3), max(err["K4"], e4)
+        log(f"  {shape} {str(dt)[6:]}: row sums err {e3:.3g}, dx err "
+            f"{e4:.3g}")
+        del x, g
+    # |mean| >> std: float32 kernels against float64 autograd of the plain
+    # version on the same float32 values; elements within 1e-3 of the
+    # LeakyReLU kink are left out (their branch may differ by rounding)
+    x32 = (torch.randn((1, 128, 40, 40, 40), generator=g0, device="cuda")
+           * 0.5 + 50.0)
+    g32 = torch.randn(x32.shape, generator=g0, device="cuda")
+    x64 = x32.double().requires_grad_()
+    (dx64,) = torch.autograd.grad(
+        (fn.instance_norm_lrelu_plain(x64) * g32.double()).sum(), x64)
+    st64 = fn.norm_stats_plain(x64.detach())
+    xh = (x64.detach().reshape(128, -1) - st64[:, :1]) * st64[:, 1:]
+    far = (xh.abs() > 1e-3).reshape(x32.shape)
+    xk = x32.clone().requires_grad_()
+    (dxk,) = torch.autograd.grad((fn.instance_norm_lrelu(xk) * g32).sum(), xk)
+    xp = x32.clone().requires_grad_()
+    with full_float32(torch):
+        (dxp,) = torch.autograd.grad(
+            (fn.instance_norm_lrelu_plain(xp) * g32).sum(), xp)
+    ek = (dxk.double() - dx64).abs()[far].max().item()
+    ep = (dxp.double() - dx64).abs()[far].max().item()
+    if ek > 1e-4:
+        raise AssertionError(f"large-mean backward err {ek:.3g} > 1e-4")
+    log(f"  large mean (1, 128, 40^3) f32 backward vs float64: kernel err "
+        f"{ek:.3g} (bound 1e-4), plain err {ep:.3g}; "
+        f"{int((~far).sum())} elements at the kink left out")
+    # the autograd Function (K1-K4) against autograd of the plain forward;
+    # elements within 1e-4 of the kink are left out: K1's and the plain
+    # statistics differ by float rounding, which may flip their branch
+    x = (torch.randn((1, 32, 80, 80, 80), generator=g0, device="cuda") * 2
+         + 0.5)
+    w = torch.randn(x.shape, generator=g0, device="cuda")
+    xk = x.clone().requires_grad_()
+    (gk,) = torch.autograd.grad((fn.instance_norm_lrelu(xk) * w).sum(), xk)
+    xp = x.clone().requires_grad_()
+    (gp,) = torch.autograd.grad((fn.instance_norm_lrelu_plain(xp) * w).sum(),
+                                xp)
+    st = fn.norm_stats_plain(x)
+    far = (((x.reshape(32, -1) - st[:, :1]) * st[:, 1:]).abs() > 1e-4
+           ).reshape(x.shape)
+    torch.testing.assert_close(gk[far], gp[far], rtol=1e-4, atol=1e-4)
+    log(f"  autograd Function vs autograd of the plain forward, (1, 32, "
+        f"80^3) f32: max err {(gk - gp)[far].abs().max().item():.3g} (atol "
+        f"1e-4); {int((~far).sum())} elements at the kink left out")
+
+
+def train_batch(torch):
+    """bench.py:164-173 at bs 1, channels-first: seeded-noise 80^3 crop,
+    one-hot labels, mask [T, F, T, T]."""
+    rng = np.random.default_rng(0)
+    lab = rng.integers(0, 4, size=(1, 80, 80, 80))
+    masks = np.ones((1, 4), bool)
+    masks[0, :2] = [True, False]
+    x = rng.standard_normal((1, 80, 80, 80, 4)).astype(np.float32)
+    onehot = np.eye(4, dtype=np.float32)[lab]
+    return {"x": torch.from_numpy(np.moveaxis(x, -1, 1).copy()).cuda(),
+            "target": torch.from_numpy(np.moveaxis(onehot, -1, 1).copy()
+                                       ).cuda(),
+            "mask": torch.from_numpy(masks).cuda()}
+
+
+def train_setup(torch, compute_dtype, with_dropout):
+    """The full-width model (seed 0), its optimizer at lr 2e-4 and the
+    train step, as `passion_tpu_torch.engine.train_loop.fit` builds them."""
+    from passion_tpu_torch.engine.schedule import (make_optimizer,
+                                                   set_learning_rate)
+    from passion_tpu_torch.engine.train_loop import make_train_step
+    from passion_tpu_torch.models import get_model, init_model
+
+    model = init_model(get_model("mmformer", mask_type="idt"), seed=0).cuda()
+    opt = make_optimizer(model.parameters(), 1e-4)
+    set_learning_rate(opt, 2e-4)
+    step = make_train_step(model, opt, use_passion=True,
+                           with_dropout=with_dropout,
+                           compute_dtype=compute_dtype)
+    return model, step
+
+
+def phase_train(torch, fn, card) -> dict:
+    """Phase 7: the full-width PASSION train step, bf16 over float32
+    master params, dropout on, as `fit` runs it."""
+    batch = train_batch(torch)
+    ones = torch.ones(4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model, step = train_setup(torch, torch.bfloat16, True)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  mmFormer full width: {n_params / 1e6:.2f} M params")
+
+    def one():
+        return step(batch, ones, ones, 4.0, gen, False)
+
+    t0 = time.perf_counter()
+    for _ in range(2):  # untimed: cuDNN set-up
+        m = one()
+    torch.cuda.synchronize()
+    log(f"  2 untimed steps {time.perf_counter() - t0:.3f} s, loss "
+        f"{m['loss'].item():.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fn)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [one()["loss"] for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = counts(fn)
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [v.item() for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    expect = TRAIN_STEPS * NORM_SITES_TRAIN
+    log(f"  launches over {TRAIN_STEPS} steps {launches} (expected "
+        f"{expect} each: {NORM_SITES_TRAIN} norm sites per step)")
+    if launches != {k: expect for k in KERNELS}:
+        raise AssertionError(f"launches {launches}, expected {expect} each")
+    log(f"  [{card}] {step_ms:.3f} ms per step -> "
+        f"{1e3 / step_ms:.4f} steps/s; peak memory {peak_gib:.2f} GiB; "
+        f"losses {[round(v, 4) for v in losses]}")
+    return dict(launches=launches, step_ms=step_ms, peak_gib=peak_gib,
+                step=one)
+
+
+def phase_train_profile(torch, run, card) -> dict:
+    """Phase 7b: torch.profiler over one full-width train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run["step"]()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return report_trace(prof, wall_ms, "train step", card, top=30)
+
+
+def phase_train_float32(torch, fn):
+    """Phase 7, float32: one step (TF32 off, dropout off) of the same
+    model and batch on the kernel path and on the plain-norm path. Held
+    together: the loss (rtol 1e-4), each gradient in relative L2 (2e-2;
+    all of them together 5e-3) and the updated params (atol 2 lr + 1e-6).
+    Why these: the two paths' statistics differ by float rounding, which
+    flips LeakyReLU branches at the kink and, behind the 5^3 bottleneck's
+    norm rows, moves some gradients by tenths of a percent (the CPU tests
+    measure the JAX package's own gradient moving that much for a 1e-6
+    change of its input); the trilinear upsampling's backward also adds
+    with atomics, in no fixed order. AMSGrad moves a param by about lr
+    whatever the size of its gradient, so rounding-level gradients of
+    opposite sign part by 2 lr."""
+    batch = train_batch(torch)
+    ones = torch.ones(4, device="cuda")
+    res = {}
+    with full_float32(torch):
+        for path in ("kernel", "plain"):
+            model, step = train_setup(torch, None, False)
+            ctx = plain_norm(fn) if path == "plain" else contextlib.nullcontext()
+            reset_counts(fn)
+            torch.cuda.reset_peak_memory_stats()
+            with ctx:
+                m = step(batch, ones, ones, 4.0, None, False)
+            torch.cuda.synchronize()
+            res[path] = dict(
+                loss=m["loss"].item(), k3=counts(fn)["K3"],
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                grads={n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()},
+                params={n: p.detach().clone()
+                        for n, p in model.named_parameters()})
+            del model, step, m
+            torch.cuda.empty_cache()
+    k, p = res["kernel"], res["plain"]
+    if k["k3"] != NORM_SITES_TRAIN or p["k3"] != 0:
+        raise AssertionError(f"K3 launches kernel {k['k3']}, plain {p['k3']}")
+    if not math.isfinite(k["loss"]) or abs(k["loss"] - p["loss"]) > 1e-4 * abs(
+            p["loss"]):
+        raise AssertionError(f"float32 losses {k['loss']} vs {p['loss']}")
+    worst, num, den = (0.0, ""), 0.0, 0.0
+    for n, gp in p["grads"].items():
+        d = (k["grads"][n] - gp).norm().item()
+        num, den = num + d * d, den + gp.norm().item() ** 2
+        rel = d / max(gp.norm().item(), 1e-12)
+        if gp.norm().item() > 1e-6 and rel > worst[0]:
+            worst = (rel, n)
+    glob_rel = math.sqrt(num / den)
+    if worst[0] > 2e-2 or glob_rel > 5e-3:
+        raise AssertionError(f"gradients: worst {worst}, global {glob_rel}")
+    dp = max((k["params"][n] - v).abs().max().item()
+             for n, v in p["params"].items())
+    if dp > 2 * 2e-4 + 1e-6:
+        raise AssertionError(f"updated params differ by {dp}")
+    log(f"  float32 step, kernel vs plain-norm path: loss {k['loss']:.6f} vs "
+        f"{p['loss']:.6f}; gradients rel L2 global {glob_rel:.3g}, worst "
+        f"{worst[0]:.3g} ({worst[1]}); updated params max diff {dp:.3g}; "
+        f"peak {k['peak']:.2f} / {p['peak']:.2f} GiB")
+
+
+def phase_train_entry(torch, fn):
+    """Phase 8: `python -m passion_tpu_torch.train`'s main at full width on
+    synthetic cases: 1 epoch x 2 iterations, then `--resume` for epoch 2."""
+    from passion_tpu_torch import train as port_train
+    from passion_tpu_torch.data.synth import make_synthetic_dataset
+    from passion_tpu_torch.engine.checkpoint import load_checkpoint
+
+    data = os.path.join(WORK, "train_data")
+    make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80), seed=0)
+
+    def run(out, epochs, *extra):
+        port_train.main(["--dataroot", data, "--datapath", ".",
+                         "--imbmrpath", "imb_split.csv", "--savepath", out,
+                         "--num_epochs", str(epochs), "--iters_per_epoch",
+                         "2", "--use_passion", "--num_workers", "4", *extra])
+        with open(os.path.join(out, "idt_training.txt")) as f:
+            return f.read()
+
+    out1, out2 = os.path.join(WORK, "train1"), os.path.join(WORK, "train2")
+    reset_counts(fn)
+    t0 = time.perf_counter()
+    run(out1, 1)
+    first = counts(fn)
+    ck = os.path.join(out1, "model_last.pt")
+    if load_checkpoint(ck)["epoch"] != 0 or min(first.values()) <= 0:
+        raise AssertionError(f"epoch-1 checkpoint or launches wrong: {first}")
+    log_text = run(out2, 2, "--resume", ck)
+    if f"resumed from {ck} at epoch 1" not in log_text or \
+            "Epoch 2/2, Iter 2/2" not in log_text:
+        raise AssertionError("--resume did not continue at epoch 2")
+    state = load_checkpoint(os.path.join(out2, "model_last.pt"))
+    n_upd = {s["count"] for s in state["optimizer"]["state"].values()}
+    if state["epoch"] != 1 or n_upd != {4}:
+        raise AssertionError(f"resumed checkpoint: epoch {state['epoch']}, "
+                             f"updates {n_upd}")
+    for out in (out1, out2):
+        with open(os.path.join(out, "mmformer.csv")) as f:
+            if len(f.read().strip().splitlines()) != 1 + 15 * 3:
+                raise AssertionError("the final sweep's CSV is incomplete")
+    log(f"  train CLI: epoch 1 checkpoint written, --resume ran epoch 2 "
+        f"(4 updates in the optimizer state), final 15-mask CSVs written; "
+        f"{time.perf_counter() - t0:.1f} s; launches of the first run "
+        f"{first}")
+
+
+def phase_backward_timing(torch, fn, err) -> dict:
+    """Phase 9: K3 and K4 at the train step's largest norm input, the
+    five-lane scale-1 tensor; the timed outputs are held against the plain
+    version (errors folded into `err`)."""
+    import torch.nn.functional as F
+
+    shape = (5, 32, 80, 80, 80)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    n, rows = x.numel(), shape[0] * shape[1]
+    st = fn.norm_stats(x)
+    b = fn.norm_bwd_stats(x, g, st)
+    k3 = cuda_ms(lambda: fn.norm_bwd_stats(x, g, st), 10)
+    k4 = cuda_ms(lambda: fn.norm_bwd_apply(x, g, st, b), 10)
+    p3 = cuda_ms(lambda: fn.norm_bwd_stats_plain(x, g, st), 3, 1)
+    p4 = cuda_ms(lambda: fn.norm_bwd_apply_plain(x, g, st, b), 3, 1)
+    e3, e4 = check_bwd(torch, fn, x, g)
+    err["K3"], err["K4"] = max(err["K3"], e3), max(err["K4"], e4)
+    log(f"  timed outputs vs plain: row sums err {e3:.3g}, dx err {e4:.3g}")
+    # the library's backward alone of F.leaky_relu(F.instance_norm(x))
+    xr = x.detach().requires_grad_()
+    y = F.leaky_relu(F.instance_norm(xr), 0.2)
+    lib = cuda_ms(lambda: torch.autograd.grad(y, xr, g, retain_graph=True), 5)
+    del y
+    ops_ms = OPS_PER_ELEMENT_BWD * n / FP32_OPS_PER_S * 1e3
+    bytes3 = (2 * 2 * n + 16 * rows) / HBM_BYTES_PER_S * 1e3
+    bytes4 = (3 * 2 * n + 16 * rows) / HBM_BYTES_PER_S * 1e3
+    b3, b4 = max(bytes3, ops_ms), max(bytes4, ops_ms)
+    by3 = "bytes" if bytes3 >= ops_ms else "operations"
+    by4 = "bytes" if bytes4 >= ops_ms else "operations"
+    log(f"  {shape} bf16 ({n / 1e6:.2f} M elements): K3 {k3:.4f} ms (bound "
+        f"{b3:.4f}), K4 {k4:.4f} ms (bound {b4:.4f}); plain {p3:.4f} / "
+        f"{p4:.4f} ms; backward of F.leaky_relu(F.instance_norm) {lib:.4f} "
+        f"ms against K3+K4 {k3 + k4:.4f} ms")
+    return dict(k3=k3, k4=k4, p3=p3, p4=p4, lib=lib, b3=b3, b4=b4, by3=by3,
+                by4=by4)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "passion_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repo "
@@ -465,9 +838,10 @@ def main() -> int:
 
     log("== 3. kernels vs plain version")
     errs = phase_kernels(torch, fn)
+    errs.update(K3=0.0, K4=0.0)
     log("== 4. main path: mmFormer 15-mask sweep, full width, bf16")
-    model, launches, engine, prepared = phase_main_path(torch, fn, card,
-                                                        errs)
+    model, sweep_launches, engine, prepared = phase_main_path(
+        torch, fn, card, errs)
     log("== 4b. profile: one encode and one fuse pass")
     phase_profile(torch, engine, prepared, card)
     del engine, prepared
@@ -475,19 +849,53 @@ def main() -> int:
     phase_entry_point(torch, fn, model)
     log("== 6. kernel timing")
     t = phase_timing(torch, fn, errs)
+    del model
+    torch.cuda.empty_cache()
 
-    src = "passion_tpu_torch/csrc/fused_norm.cu"
+    log("== 3b. backward kernels vs plain version")
+    phase_backward_kernels(torch, fn, errs)
+    log("== 7. main path: mmFormer PASSION train step, full width, bf16")
+    run = phase_train(torch, fn, card)
+    log("== 7b. profile: one train step")
+    phase_train_profile(torch, run, card)
+    del run
+    torch.cuda.empty_cache()
+    phase_train_float32(torch, fn)
+    log("== 8. entry point: passion_tpu_torch.train")
+    phase_train_entry(torch, fn)
+    log("== 9. backward kernel timing")
+    tb = phase_backward_timing(torch, fn, errs)
+    train_launches = TRAIN_STEPS * NORM_SITES_TRAIN
+
+    fwd, bwd = ("passion_tpu_torch/csrc/fused_norm.cu",
+                "passion_tpu_torch/csrc/fused_norm_bwd.cu")
     kernels = [
-        dict(name="K1 instance_norm_lrelu stats", route="cuda", source=src,
+        dict(name="K1 instance_norm_lrelu stats", route="cuda", source=fwd,
              replaces="passion_tpu/ops/fused_norm.py:84",
-             launches=launches["K1"], max_abs_err=errs["K1"], ms=t["k1"],
-             plain_ms=t["p1"], bound_ms=t["b1"], bound_by=t["by1"],
-             library_ms=t["lib1"]),
-        dict(name="K2 instance_norm_lrelu apply", route="cuda", source=src,
+             launches=sweep_launches["K1"],
+             launches_by_path={"sweep": sweep_launches["K1"],
+                               "train_steps": train_launches},
+             max_abs_err=errs["K1"], ms=t["k1"], plain_ms=t["p1"],
+             bound_ms=t["b1"], bound_by=t["by1"], library_ms=t["lib1"]),
+        dict(name="K2 instance_norm_lrelu apply", route="cuda", source=fwd,
              replaces="passion_tpu/ops/fused_norm.py:101",
-             launches=launches["K2"], max_abs_err=errs["K2"], ms=t["k2"],
-             plain_ms=t["p2"], bound_ms=t["b2"], bound_by=t["by2"],
-             library_ms=None),
+             launches=sweep_launches["K2"],
+             launches_by_path={"sweep": sweep_launches["K2"],
+                               "train_steps": train_launches},
+             max_abs_err=errs["K2"], ms=t["k2"], plain_ms=t["p2"],
+             bound_ms=t["b2"], bound_by=t["by2"], library_ms=None),
+        dict(name="K3 instance_norm_lrelu backward row sums", route="cuda",
+             source=bwd, replaces="passion_tpu/ops/fused_norm.py:221",
+             launches=train_launches,
+             launches_by_path={"sweep": 0, "train_steps": train_launches},
+             max_abs_err=errs["K3"], ms=tb["k3"], plain_ms=tb["p3"],
+             bound_ms=tb["b3"], bound_by=tb["by3"], library_ms=tb["lib"]),
+        dict(name="K4 instance_norm_lrelu backward apply", route="cuda",
+             source=bwd, replaces="passion_tpu/ops/fused_norm.py:221",
+             launches=train_launches,
+             launches_by_path={"sweep": 0, "train_steps": train_launches},
+             max_abs_err=errs["K4"], ms=tb["k4"], plain_ms=tb["p4"],
+             bound_ms=tb["b4"], bound_by=tb["by4"], library_ms=None),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",

@@ -1,5 +1,8 @@
-"""Evaluation configuration: the eval subset of `passion_tpu/config.py`'s
-flags (the reference's options.py names) plus `--device`."""
+"""Configuration: the reference's argparse surface (options.py names, as
+`passion_tpu/config.py` has them) backed by dataclasses, plus `--device`.
+`EvalConfig` / `parse_config` for `python -m passion_tpu_torch.eval`,
+`TrainConfig` / `parse_train_config` for `python -m passion_tpu_torch.train`.
+"""
 
 from __future__ import annotations
 
@@ -59,3 +62,116 @@ def parse_config(argv=None) -> EvalConfig:
     p.add_argument("--seed", default=d.seed, type=int)
     p.add_argument("--device", default=d.device, choices=("cuda", "cpu"))
     return EvalConfig(**vars(p.parse_args(argv)))
+
+
+def train_transforms_for(patch_size: int = 80) -> str:
+    """The reference training pipeline (options.py:50) at a given crop."""
+    s = patch_size
+    return (f"Compose([RandCrop3D(({s},{s},{s})), RandomRotion(10), "
+            "RandomIntensityChange((0.1,0.1)), RandomFlip(0), "
+            "NumpyType((np.float32, np.int64)),])")
+
+
+@dataclass
+class TrainConfig:
+    model: str = "mmformer"
+    batch_size: int = 1
+    lr: float = 2e-4
+    weight_decay: float = 1e-4
+    num_epochs: int = 300
+    temp: float = 4.0
+    region_fusion_start_epoch: int = 0
+    seed: int = 1037
+    gpu: str = ""  # accepted for CLI parity; the device is --device
+    mask_type: str = "idt"  # pdt | idt | idt_drop
+    use_pretrain: bool = False
+    use_passion: bool = False
+    use_valid: bool = False
+    dataname: str = "BraTS/BRATS2020"
+    datapath: str = "BraTS/BRATS2020_Training_none_npy"
+    imbmrpath: str = "BraTS/brats_split/Brats2020_imb_split_mr2468.csv"
+    savepath: str = "outputs/run"
+    resume: str | None = None
+    dataroot: str | None = None
+    patch_size: int = 80
+    basic_dims: int | None = None  # backbone width overrides (small runs)
+    trans_dim: int | None = None
+    mlp_dim: int | None = None
+    heads: int | None = None
+    data_parallel: int = 0  # the mesh path is not ported: must stay 0
+    num_cls: int = 4
+    window_batch: int = 0  # 0 = auto
+    num_workers: int = 8
+    iters_per_epoch: int | None = None  # cap for smoke runs
+    device: str = "cuda"
+
+    @property
+    def train_transforms(self) -> str:
+        return train_transforms_for(self.patch_size)
+
+    @property
+    def model_kwargs(self) -> dict:
+        """kwargs for models.get_model beyond the reference surface."""
+        return {k: getattr(self, k) for k in ("basic_dims", "trans_dim",
+                                              "mlp_dim", "heads")
+                if getattr(self, k)}
+
+    @property
+    def dataroot_path(self) -> str:
+        if self.dataroot:
+            return os.path.abspath(self.dataroot)
+        return os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                            "..", "datasets"))
+
+    @property
+    def dataset_path(self) -> str:
+        return os.path.abspath(os.path.join(self.dataroot_path,
+                                            self.datapath))
+
+    @property
+    def imbmr_path(self) -> str:
+        if os.path.isabs(self.imbmrpath):
+            return self.imbmrpath
+        return os.path.join(self.dataroot_path, self.imbmrpath)
+
+
+def parse_train_config(argv=None) -> TrainConfig:
+    """train.py's flags (passion_tpu/config.py `add_common_args`) plus
+    `--device` and the width overrides."""
+    d = TrainConfig()
+    p = argparse.ArgumentParser(description="PASSION training of a "
+                                "passion_tpu_torch model")
+    p.add_argument("--model", default=d.model, type=str)
+    p.add_argument("-batch_size", "--batch_size", default=d.batch_size,
+                   type=int)
+    p.add_argument("--lr", default=d.lr, type=float)
+    p.add_argument("--weight_decay", default=d.weight_decay, type=float)
+    p.add_argument("--num_epochs", default=d.num_epochs, type=int)
+    p.add_argument("--temp", default=d.temp, type=float)
+    p.add_argument("--region_fusion_start_epoch",
+                   default=d.region_fusion_start_epoch, type=int)
+    p.add_argument("--seed", default=d.seed, type=int)
+    p.add_argument("--gpu", default=d.gpu, type=str)
+    p.add_argument("--mask_type", default=d.mask_type, type=str)
+    p.add_argument("--use_pretrain", action="store_true")
+    p.add_argument("--use_passion", action="store_true")
+    p.add_argument("--use_valid", action="store_true")
+    p.add_argument("--dataname", default=d.dataname, type=str)
+    p.add_argument("--datapath", default=d.datapath, type=str)
+    p.add_argument("--imbmrpath", default=d.imbmrpath, type=str)
+    p.add_argument("--savepath", default=d.savepath, type=str)
+    p.add_argument("--resume", default=None, type=str)
+    p.add_argument("--dataroot", default=None, type=str,
+                   help="dataset root (default: ../datasets next to package)")
+    p.add_argument("--patch_size", default=d.patch_size, type=int)
+    for name, ref in (("basic_dims", "8"), ("trans_dim", "512"),
+                      ("mlp_dim", "4096"), ("heads", "8")):
+        p.add_argument(f"--{name}", default=None, type=int,
+                       help=f"override the backbone's {name} (the reference "
+                            f"has {ref}; small values for smoke runs)")
+    p.add_argument("--data_parallel", default=d.data_parallel, type=int)
+    p.add_argument("--window_batch", default=d.window_batch, type=int)
+    p.add_argument("--num_workers", default=d.num_workers, type=int)
+    p.add_argument("--iters_per_epoch", default=None, type=int)
+    p.add_argument("--device", default=d.device, choices=("cuda", "cpu"))
+    return TrainConfig(**vars(p.parse_args(argv)))

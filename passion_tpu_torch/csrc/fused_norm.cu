@@ -1,6 +1,7 @@
-// Fused InstanceNorm + LeakyReLU for Hopper (sm_90a): the two kernels of
-// passion_tpu_torch/ops/fused_norm.py, behind a plain C interface that the
-// wrapper loads with ctypes.
+// Fused InstanceNorm + LeakyReLU for Hopper (sm_90a), forward: the two
+// kernels of passion_tpu_torch/ops/fused_norm.py `norm_stats` and
+// `norm_apply`, behind a plain C interface that the wrapper loads with
+// ctypes. The backward pair (K3, K4) is in fused_norm_bwd.cu.
 //
 // K1 (stats) replaces passion_tpu/ops/fused_norm.py `_stats_kernel` and the
 // host glue of `_pallas_norm_lrelu` that turns its lane moments into
@@ -26,83 +27,11 @@
 // bit. Partial sums are shifted by a per-row pilot (the row's first value)
 // so E[x^2] - E[x]^2 never cancels when |mean| >> std.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "norm_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kVec = 8;  // elements per vector access; chunks are multiples
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Eight consecutive elements: one 16-byte access for bf16, two for float.
-template <typename T>
-struct Vec8;
-
-template <>
-struct Vec8<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&v)[kVec]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&v)[kVec]) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    }
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
-
-template <>
-struct Vec8<float> {
-  static __device__ __forceinline__ void load(const float* p,
-                                              float (&v)[kVec]) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  }
-  static __device__ __forceinline__ void store(float* p,
-                                               const float (&v)[kVec]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using namespace pnorm;
 
 // K1, first launch: block (row, split) reduces elements
 // [split * chunk, min((split + 1) * chunk, n)) of its row to the pilot-
@@ -111,17 +40,14 @@ template <typename T, bool kVectorized>
 __global__ void __launch_bounds__(kThreads)
     stats_partial_kernel(const T* __restrict__ x, int64_t n, int64_t chunk,
                          int64_t splits, float2* __restrict__ part) {
-  const int64_t blk = blockIdx.x;
-  const int64_t row = blk / splits;
-  const int64_t start = (blk - row * splits) * chunk;
-  const int64_t end = min64(start + chunk, n);
-  const T* base = x + row * n;
+  const Slice sl = slice_of(blockIdx.x, n, chunk, splits);
+  const T* base = x + sl.row * n;
   const float pilot = to_float(base[0]);
 
   float s = 0.f, s2 = 0.f;
   if (kVectorized) {
-    for (int64_t i = start + static_cast<int64_t>(threadIdx.x) * kVec;
-         i < end; i += static_cast<int64_t>(kThreads) * kVec) {
+    for (int64_t i = sl.start + static_cast<int64_t>(threadIdx.x) * kVec;
+         i < sl.end; i += static_cast<int64_t>(kThreads) * kVec) {
       float v[kVec];
       Vec8<T>::load(base + i, v);
 #pragma unroll
@@ -132,34 +58,18 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   } else {
-    for (int64_t i = start + threadIdx.x; i < end; i += kThreads) {
+    for (int64_t i = sl.start + threadIdx.x; i < sl.end; i += kThreads) {
       const float d = to_float(base[i]) - pilot;
       s += d;
       s2 = fmaf(d, d, s2);
     }
   }
 
-  __shared__ float sh_s[kThreads / 32];
-  __shared__ float sh_s2[kThreads / 32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    sh_s[warp] = s;
-    sh_s2[warp] = s2;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    s = lane < kThreads / 32 ? sh_s[lane] : 0.f;
-    s2 = lane < kThreads / 32 ? sh_s2[lane] : 0.f;
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      const float cnt = static_cast<float>(end - start);
-      const float dmean = s / cnt;
-      part[blk] = make_float2(dmean, fmaxf(s2 - s * dmean, 0.f));
-    }
+  block_sum2(s, s2);
+  if (threadIdx.x == 0) {
+    const float cnt = static_cast<float>(sl.end - sl.start);
+    const float dmean = s / cnt;
+    part[blockIdx.x] = make_float2(dmean, fmaxf(s2 - s * dmean, 0.f));
   }
 }
 
@@ -198,16 +108,13 @@ __global__ void __launch_bounds__(kThreads)
     apply_kernel(const T* __restrict__ x, const float2* __restrict__ stats,
                  T* __restrict__ y, int64_t n, int64_t chunk, int64_t splits,
                  float slope) {
-  const int64_t blk = blockIdx.x;
-  const int64_t row = blk / splits;
-  const int64_t start = (blk - row * splits) * chunk;
-  const int64_t end = min64(start + chunk, n);
-  const int64_t off = row * n;
-  const float2 st = stats[row];
+  const Slice sl = slice_of(blockIdx.x, n, chunk, splits);
+  const int64_t off = sl.row * n;
+  const float2 st = stats[sl.row];
 
   if (kVectorized) {
-    for (int64_t i = start + static_cast<int64_t>(threadIdx.x) * kVec;
-         i < end; i += static_cast<int64_t>(kThreads) * kVec) {
+    for (int64_t i = sl.start + static_cast<int64_t>(threadIdx.x) * kVec;
+         i < sl.end; i += static_cast<int64_t>(kThreads) * kVec) {
       float v[kVec];
       Vec8<T>::load(x + off + i, v);
 #pragma unroll
@@ -218,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
       Vec8<T>::store(y + off + i, v);
     }
   } else {
-    for (int64_t i = start + threadIdx.x; i < end; i += kThreads) {
+    for (int64_t i = sl.start + threadIdx.x; i < sl.end; i += kThreads) {
       const float t = (to_float(x[off + i]) - st.x) * st.y;
       y[off + i] = from_float<T>(t >= 0.f ? t : t * slope);
     }
@@ -229,21 +136,19 @@ template <typename T>
 int launch_stats(const void* x, int64_t rows, int64_t n, int64_t chunk,
                  int vectorized, float eps, void* part, void* stats,
                  cudaStream_t stream) {
-  const int64_t splits = (n + chunk - 1) / chunk;
-  const int64_t blocks = rows * splits;
-  if (rows <= 0 || n <= 0 || chunk % kVec != 0 || blocks > 0x7fffffff) {
+  if (bad_launch(rows, n, chunk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int64_t splits = (n + chunk - 1) / chunk;
+  const unsigned blocks = static_cast<unsigned>(rows * splits);
   const T* xt = static_cast<const T*>(x);
   float2* pt = static_cast<float2*>(part);
   if (vectorized) {
     stats_partial_kernel<T, true>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-            xt, n, chunk, splits, pt);
+        <<<blocks, kThreads, 0, stream>>>(xt, n, chunk, splits, pt);
   } else {
     stats_partial_kernel<T, false>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-            xt, n, chunk, splits, pt);
+        <<<blocks, kThreads, 0, stream>>>(xt, n, chunk, splits, pt);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -258,22 +163,20 @@ template <typename T>
 int launch_apply(const void* x, const void* stats, void* y, int64_t rows,
                  int64_t n, int64_t chunk, int vectorized, float slope,
                  cudaStream_t stream) {
-  const int64_t splits = (n + chunk - 1) / chunk;
-  const int64_t blocks = rows * splits;
-  if (rows <= 0 || n <= 0 || chunk % kVec != 0 || blocks > 0x7fffffff) {
+  if (bad_launch(rows, n, chunk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int64_t splits = (n + chunk - 1) / chunk;
+  const unsigned blocks = static_cast<unsigned>(rows * splits);
   const T* xt = static_cast<const T*>(x);
   const float2* st = static_cast<const float2*>(stats);
   T* yt = static_cast<T*>(y);
   if (vectorized) {
     apply_kernel<T, true>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-            xt, st, yt, n, chunk, splits, slope);
+        <<<blocks, kThreads, 0, stream>>>(xt, st, yt, n, chunk, splits, slope);
   } else {
     apply_kernel<T, false>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-            xt, st, yt, n, chunk, splits, slope);
+        <<<blocks, kThreads, 0, stream>>>(xt, st, yt, n, chunk, splits, slope);
   }
   return static_cast<int>(cudaGetLastError());
 }

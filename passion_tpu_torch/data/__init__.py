@@ -1,1 +1,2 @@
-"""Test data of the port: BraTS npy cases and a synthetic generator."""
+"""Data of the port: BraTS npy datasets, augmentations, the prefetching
+loader and a synthetic generator."""

@@ -7,59 +7,31 @@ with Dice WT/TC/ET(+postpro) and HD95, writing per-case CSV rows to
   python -m passion_tpu_torch.eval --resume model.pt --dataroot DATA \
       --datapath . --savepath outputs/eval
 
-`--resume` takes a port checkpoint (`torch.save(model.state_dict())`) or an
-.npz of the JAX package's flattened params (README, "PyTorch/CUDA port").
+`--resume` takes a port checkpoint (`torch.save(model.state_dict())`, or
+a training checkpoint of `python -m passion_tpu_torch.train`) or an .npz
+of the JAX package's flattened params (README, "PyTorch/CUDA port").
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import random
-import sys
-
-import numpy as np
-import torch
 
 from passion_tpu_torch import resolve_device
 from passion_tpu_torch.config import parse_config
 from passion_tpu_torch.data.datasets import (TEST_TRANSFORMS, BratsTest,
                                              CaseLoader)
+from passion_tpu_torch.engine.checkpoint import load_weights
 from passion_tpu_torch.engine.evaluator import run_test_sweep
 from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
-from passion_tpu_torch.interop.jax_weights import load_jax_npz
+from passion_tpu_torch.logging_utils import set_seed, setup
 from passion_tpu_torch.models import get_model
-
-
-def setup_logging(savepath: str, mask_type: str) -> None:
-    """File + console logging to `{savepath}/{mask_type}_eval.txt`
-    (reference parser.py:90-105)."""
-    os.makedirs(savepath, exist_ok=True)
-    root = logging.getLogger()
-    root.setLevel(logging.INFO)
-    for h in list(root.handlers):
-        root.removeHandler(h)
-        h.close()
-    fmt = logging.Formatter("%(asctime)s %(message)s", "%m-%d %H:%M:%S")
-    for h in (logging.FileHandler(os.path.join(savepath,
-                                               f"{mask_type}_eval.txt")),
-              logging.StreamHandler(sys.stdout)):
-        h.setFormatter(fmt)
-        root.addHandler(h)
-
-
-def load_weights(path: str) -> dict:
-    if path.endswith(".npz"):
-        return load_jax_npz(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def main(argv=None):
     cfg = parse_config(argv)
-    setup_logging(cfg.savepath, cfg.mask_type)
-    random.seed(cfg.seed)
-    np.random.seed(cfg.seed)
-    torch.manual_seed(cfg.seed)
+    setup(cfg, "eval")
+    set_seed(cfg.seed)
     logging.info(str(cfg))
     if not cfg.resume:  # fail before the model is built
         raise SystemExit("--resume checkpoint path is required")

@@ -1,4 +1,6 @@
-"""JAX package params -> port state_dict, for mmFormer.
+"""JAX package params -> port state_dict, for mmFormer: the whole tree,
+the training-only modules (`decoder_sep`, `fuse_path/decoder_fuse/seg_d*`)
+included.
 
 `mmformer_from_jax_params(tree)` takes the flax param tree of
 `passion_tpu.models.mmformer.MMFormer` as nested dicts of numpy arrays
@@ -23,11 +25,6 @@ import re
 
 import numpy as np
 import torch
-
-# Params of the JAX training forward that inference does not run; they come
-# with the port's training slice.
-TRAINING_ONLY = ("decoder_sep/",) + tuple(
-    f"fuse_path/decoder_fuse/seg_d{k}/" for k in range(1, 5))
 
 _BLOCK = re.compile(r"(attn_norm|ffn_norm|attn|ffn)_(\d+)")
 _RFM_CONV = re.compile(r"GeneralConv3dPreNorm_(\d)")
@@ -78,8 +75,6 @@ def mmformer_from_jax_params(params) -> dict[str, torch.Tensor]:
         params = params["params"]
     sd = {}
     for path, leaf in _flatten(params):
-        if "/".join(path).startswith(TRAINING_ONLY):
-            continue
         arr = np.asarray(leaf, dtype=np.float32)
         if path[0] == "intra_transformers":
             per_modality = [(path[:1] + (str(m),) + path[1:], arr[m])

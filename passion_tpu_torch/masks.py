@@ -1,4 +1,4 @@
-"""Modality-combination mask tables (copy of `passion_tpu/masks.py:14-72`).
+"""Modality-combination mask tables (copy of `passion_tpu/masks.py:14-87`).
 
 Four MRI modalities in fixed index order FLAIR, T1ce, T1, T2. A boolean
 length-4 mask selects which modalities are present; the 15 non-empty
@@ -48,3 +48,11 @@ def mask_id_of(mask) -> int:
     if hits.size != 1:
         raise ValueError(f"not a valid non-empty modality mask: {mask}")
     return int(hits[0])
+
+
+def sub_combination_ids(mask) -> list[int]:
+    """All mask_ids whose present set is a non-empty subset of `mask`: the
+    `pos_mask_ids` column of the imb-MR CSVs (generate_imb_mr.py:220-279),
+    the combinations a sample may be dropped to under `idt_drop`."""
+    mask = np.asarray(mask, dtype=bool)
+    return [i for i, row in enumerate(MASK_ARRAY) if not np.any(row & ~mask)]

@@ -1,5 +1,5 @@
-"""Backbones of the port. mmFormer inference is ported; RFNet and M2FTrans
-follow (ROADMAP.md queue A, slice 3).
+"""Backbones of the port. mmFormer is ported (inference and the PASSION
+training forward); RFNet and M2FTrans follow (ROADMAP.md queue A, slice 3).
 
 `get_model(name, ...)` resolves the reference's `--model` flag;
 `init_model(model, seed)` draws seeded weights with the JAX package's

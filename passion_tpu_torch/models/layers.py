@@ -1,10 +1,13 @@
-"""mmFormer's building blocks for inference (counterpart of the parts of
-`passion_tpu/models/layers.py` that the mmFormer sweep runs).
+"""mmFormer's building blocks (counterpart of the parts of
+`passion_tpu/models/layers.py` that mmFormer runs, for inference and for
+the PASSION training step).
 
 Tensors are (B, C, H, W, Z). Per-modality features lie flat on the channel
 axis, modality-major ((B, 4*C, ...)), as in the JAX package, so that the
-four modality encoders are one grouped conv. Dropout is left out: this
-slice serves, and the JAX sweep runs deterministic.
+four modality encoders are one grouped conv. The transformer's dropout
+(rate 0.1, at the places layers.py:423-515 puts it) is active only when a
+`torch.Generator` is passed, which only the training forward does; the
+JAX package's `deterministic=True` is the port's `generator=None`.
 
 The block-diagonal grouped kernels (layers.py:133-145) and space-to-depth
 execution (ops/s2d.py) are TPU layout rewrites of the same arithmetic and
@@ -21,6 +24,19 @@ from torch import nn
 from passion_tpu_torch.ops import fused_norm
 
 NUM_MODALS = 4
+DROPOUT_RATE = 0.1  # the JAX Transformer's default
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate), with the keep mask drawn from `generator`
+    (on x's device). The identity when `generator` is None."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def mask_modalities(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -36,6 +52,51 @@ def mask_channels(x: torch.Tensor, mask: torch.Tensor,
     b, c = x.shape[0], x.shape[1] // num_modals
     m = mask.to(x.dtype).repeat_interleave(c, dim=1)
     return x * m.reshape((b, num_modals * c) + (1,) * (x.dim() - 2))
+
+
+def mask_channels_lanes(x: torch.Tensor, masks: torch.Tensor,
+                        num_modals: int = NUM_MODALS) -> torch.Tensor:
+    """`mask_channels` of one batch under L masks at once: x (B, M*C, ...),
+    masks (L, B, M) -> (L*B, M*C, ...), lane-major (row l*B + b is sample b
+    under masks[l, b]). With L = 1 it is `mask_channels`."""
+    lanes, b, _ = masks.shape
+    c = x.shape[1] // num_modals
+    w = masks.to(x.dtype).repeat_interleave(c, dim=2)
+    w = w.reshape((lanes, b, num_modals * c) + (1,) * (x.dim() - 2))
+    return (x.unsqueeze(0) * w).reshape((lanes * b,) + tuple(x.shape[1:]))
+
+
+def split_modalities(x: torch.Tensor,
+                     num_modals: int = NUM_MODALS) -> torch.Tensor:
+    """Flat (B, M*C, ...) -> (M*B, C, ...), modality-major: the M
+    per-modality tensors of layers.py:127 stacked on the batch axis, so that
+    a module with tied params runs them as one batch."""
+    b, mc = x.shape[:2]
+    c = mc // num_modals
+    return x.reshape((b, num_modals, c) + tuple(x.shape[2:])).transpose(
+        0, 1).reshape((num_modals * b, c) + tuple(x.shape[2:]))
+
+
+def unimodal_mask_stack(mask: torch.Tensor) -> torch.Tensor:
+    """(B, 4) -> (5, B, 4): [real mask, mod0-only, ..., mod3-only]
+    (copy of `_unimodal_mask_stack`, passion_tpu/models/rfnet.py:257-263)."""
+    b = mask.shape[0]
+    eye = torch.eye(NUM_MODALS, dtype=mask.dtype, device=mask.device)
+    return torch.cat([mask[None], eye[:, None, :].expand(NUM_MODALS, b,
+                                                         NUM_MODALS)], dim=0)
+
+
+def zero_unimodal_self_dist(dist: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+    """Zero dist[b, k] where sample b's mask IS the unimodal mask k
+    (layers.py:886-903). For such a sample the mod-k distillation lane and
+    the teacher lane compute the same thing, so the reference's distance is
+    exactly 0, which the train step turns into 0/0 = NaN and an all-False
+    preference gate for the iteration. Enforced here by construction rather
+    than left to rounding."""
+    mask_f = mask.to(torch.float32)
+    unimodal = (mask_f.sum(dim=1, keepdim=True) == 1.0).to(torch.float32)
+    return dist * (1.0 - mask_f * unimodal)
 
 
 def mask_kernel_rows(weight: torch.Tensor, in_mask: torch.Tensor,
@@ -123,26 +184,31 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         b, n, c = x.shape
         hd = c // self.heads
         q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, hd).permute(
             2, 0, 3, 1, 4)  # each (B, H, N, hd)
         attn = torch.softmax((q @ k.transpose(-2, -1)) * (hd ** -0.5), dim=-1)
+        attn = dropout(attn, DROPOUT_RATE, generator)
         y = (attn @ v).transpose(1, 2).reshape(b, n, c)
-        return self.proj(y)
+        return dropout(self.proj(y), DROPOUT_RATE, generator)
 
 
 class FeedForward(nn.Module):
-    """Linear -> GELU (erf) -> Linear (layers.py:474-487)."""
+    """Linear -> GELU (erf) -> Dropout -> Linear -> Dropout
+    (layers.py:474-487)."""
 
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = dropout(F.gelu(self.fc1(x)), DROPOUT_RATE, generator)
+        return dropout(self.fc2(h), DROPOUT_RATE, generator)
 
 
 class TransformerBlock(nn.Module):
@@ -164,11 +230,14 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             TransformerBlock(dim, heads, mlp_dim) for _ in range(depth))
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`generator`: dropout on, masks drawn from it (training only)."""
         for blk in self.layers:
             x = x + pos
-            x = x + blk.attn(blk.attn_norm(x))
-            x = x + blk.ffn(blk.ffn_norm(x))
+            h = blk.attn(blk.attn_norm(x), generator)
+            x = x + dropout(h, DROPOUT_RATE, generator)  # layers.py:509
+            x = x + blk.ffn(blk.ffn_norm(x), generator)
         return x
 
 

@@ -1,4 +1,5 @@
-"""mmFormer inference (counterpart of `passion_tpu/models/mmformer.py`).
+"""mmFormer (counterpart of `passion_tpu/models/mmformer.py`): inference
+and the PASSION training forward.
 
 Five-stage pre-norm conv encoders for the four modalities, run as one
 grouped encoder on modality-major channels; an IntraFormer per modality
@@ -9,9 +10,17 @@ every scale. Tensors are (B, C, H, W, Z).
 `features(x)` is the mask-independent part of a window's forward and
 `fuse_inference(features(x), mask)` the per-mask part, so the 15-mask sweep
 encodes each window once: `fuse_inference(features(x), m) == forward(x, m)`
-for every mask m. The training forward (`train_losses`, the shared
-per-modality decoder and the deep-supervision heads) comes with the
-training slice.
+for every mask m.
+
+`train_losses` is the training forward with in-graph per-sample losses. JAX
+runs its 5 fuse passes (the real mask and the 4 unimodal masks) as a vmap
+over a (5, B, 4) mask stack with tied params, and the shared per-modality
+decoder 4 times with tied params; every op on those paths is per-sample, so
+here they are one pass over a batch of 5B (resp. 4B), lane-major. The
+deep-supervision heads `seg_d1..seg_d4` run only in training, so the
+inference paths launch exactly the convs and norms they did before.
+The reference's T2 self-distillation bug (mmformer.py:24-26) is not
+copied: lane 4 runs the T2-only mask.
 """
 
 from __future__ import annotations
@@ -19,13 +28,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from passion_tpu_torch import losses
 from passion_tpu_torch.models.layers import (
     Conv3d,
     FusionPreNorm,
     GeneralConv3dPreNorm,
     Transformer,
-    mask_channels,
+    mask_channels_lanes,
     mask_modalities,
+    split_modalities,
+    unimodal_mask_stack,
+    zero_unimodal_self_dist,
 )
 from passion_tpu_torch.ops import fused_norm
 from passion_tpu_torch.ops.resize import upsample_trilinear
@@ -70,16 +83,45 @@ class GroupedEncoder(nn.Module):
         return tuple(outs)
 
 
+class DecoderSep(nn.Module):
+    """Shared 5-scale per-modality decoder -> softmax (mmformer.py:119-170,
+    its non-space-to-depth branch). Inputs are single-modality scales
+    (N, C_k, ...); the training forward stacks the 4 modalities on the
+    batch axis (`split_modalities`) and runs it once."""
+
+    def __init__(self, num_cls: int = 4, basic_dims: int = 8):
+        super().__init__()
+        c = basic_dims
+        for k, ck in ((4, 8 * c), (3, 4 * c), (2, 2 * c), (1, c)):
+            setattr(self, f"d{k}_c1", GeneralConv3dPreNorm(2 * ck, ck))
+            setattr(self, f"d{k}_c2", GeneralConv3dPreNorm(2 * ck, ck))
+            setattr(self, f"d{k}_out",
+                    GeneralConv3dPreNorm(ck, ck, 1, padding=0))
+        self.seg_layer = Conv3d(c, num_cls, 1, padding=0)
+
+    def forward(self, x1, x2, x3, x4, x5) -> torch.Tensor:
+        de = x5
+        for k, xk in ((4, x4), (3, x3), (2, x2), (1, x1)):
+            de = getattr(self, f"d{k}_c1")(upsample_trilinear(de, 2))
+            de = getattr(self, f"d{k}_out")(
+                getattr(self, f"d{k}_c2")(torch.cat([de, xk], dim=1)))
+        return torch.softmax(self.seg_layer(de), dim=1)
+
+
 class DecoderFuse(nn.Module):
     """Fusion decoder (mmformer.py:173-268, its non-space-to-depth branch).
     Inputs x1..x4 are flat modality stacks (B, 4*C_k, ...), x5 the decoded
-    InterFormer volume (B, 4*16c, s, s, s). Returns the logits."""
+    InterFormer volume (B, 4*16c, s, s, s). Returns the logits, or with
+    `heads` (training) (logits, (pred1..pred4), (de_x1_f..de_x5_f)): the
+    deep-supervision logits at 1/2..1/16 resolution and each scale's
+    decoded feature."""
 
     def __init__(self, num_cls: int = 4, basic_dims: int = 8):
         super().__init__()
         c, g = basic_dims, NUM_MODALS
         self.RFM5 = FusionPreNorm(16 * c * g, 16 * c)
         self.d4_c1 = GeneralConv3dPreNorm(16 * c, 8 * c)
+        self.seg_d4 = Conv3d(16 * c, num_cls, 1, padding=0)
         for k, ck in ((4, 8 * c), (3, 4 * c), (2, 2 * c), (1, c)):
             setattr(self, f"RFM{k}", FusionPreNorm(ck * g, ck))
             setattr(self, f"d{k}_c2", GeneralConv3dPreNorm(2 * ck, ck))
@@ -87,22 +129,34 @@ class DecoderFuse(nn.Module):
                     GeneralConv3dPreNorm(ck, ck, 1, padding=0))
             if k > 1:
                 setattr(self, f"d{k - 1}_c1", GeneralConv3dPreNorm(ck, ck // 2))
+                setattr(self, f"seg_d{k - 1}", Conv3d(ck, num_cls, 1,
+                                                      padding=0))
         self.seg_layer = Conv3d(c, num_cls, 1, padding=0)
 
-    def forward(self, x1, x2, x3, x4, x5,
-                pm_mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x1, x2, x3, x4, x5, pm_mask: torch.Tensor | None = None,
+                heads: bool = False):
         """`pm_mask` ((4,), premasked sweep mode): x1..x4 arrive unmasked
         and prenormed (MMFormer.features) and the mask is folded into each
         scale's first RFM conv kernel instead."""
         pn = pm_mask is not None
-        up = self.d4_c1(upsample_trilinear(self.RFM5(x5), 2))
+        de_f = self.RFM5(x5)
+        feats, preds = [de_f], []
+        if heads:
+            preds.append(self.seg_d4(de_f))
+        up = self.d4_c1(upsample_trilinear(de_f, 2))
         for k, xk in ((4, x4), (3, x3), (2, x2), (1, x1)):
             de = getattr(self, f"RFM{k}")(xk, in_mask=pm_mask, prenormed=pn)
             de_f = getattr(self, f"d{k}_out")(
                 getattr(self, f"d{k}_c2")(torch.cat([de, up], dim=1)))
+            feats.append(de_f)
             if k > 1:
+                if heads:
+                    preds.append(getattr(self, f"seg_d{k - 1}")(de_f))
                 up = getattr(self, f"d{k - 1}_c1")(upsample_trilinear(de_f, 2))
-        return self.seg_layer(de_f)
+        logits = self.seg_layer(de_f)
+        if not heads:
+            return logits
+        return logits, tuple(preds[::-1]), tuple(feats[::-1])
 
 
 class FusePath(nn.Module):
@@ -120,26 +174,42 @@ class FusePath(nn.Module):
         self.decoder_fuse = DecoderFuse(num_cls, basic_dims)
 
     def forward(self, feats, intra: torch.Tensor, pos_all: torch.Tensor,
-                mask: torch.Tensor, premasked: bool = False) -> torch.Tensor:
-        """feats: 4 flat scales; intra: (B, 4, T, D); pos_all: (1, 4T, D);
-        mask: (B, 4). With `premasked` the feats are unmasked and prenormed
-        and the mask must be the same for the whole batch."""
+                mask: torch.Tensor, premasked: bool = False,
+                generator: torch.Generator | None = None,
+                heads: bool = False):
+        """feats: 4 flat scales (B, 4*C_k, ...); intra: (B, 4, T, D);
+        pos_all: (1, 4T, D); mask: (B, 4), or (L, B, 4) to run L masks over
+        the same batch as one batch of L*B, lane-major (the JAX vmap over
+        the mask stack). With `premasked` the feats are unmasked and
+        prenormed and the mask (B, 4) must be the same for the whole batch.
+        `generator` turns dropout on; `heads` returns the deep-supervision
+        outputs too (DecoderFuse)."""
         b, _, t, d = intra.shape
         s = round(t ** (1 / 3))
-        tokens = mask_modalities(intra, mask).reshape(b, NUM_MODALS * t, d)
-        inter = self.multimodal_transformer(tokens, pos_all)
+        lanes = mask.reshape(-1, b, NUM_MODALS)
+        n = lanes.shape[0] * b
+        tokens = (intra.unsqueeze(0) * lanes.to(intra.dtype)[..., None, None])
+        inter = self.multimodal_transformer(
+            tokens.reshape(n, NUM_MODALS * t, d), pos_all, generator)
         # The reference's reshape scramble (mmformer.py:317-321): the
-        # (B, 4T, D) tokens are read channels-last as (B, s, s, s, 4D).
-        x5 = inter.reshape(b, s, s, s, d * NUM_MODALS).permute(
+        # (N, 4T, D) tokens are read channels-last as (N, s, s, s, 4D).
+        x5 = inter.reshape(n, s, s, s, d * NUM_MODALS).permute(
             0, 4, 1, 2, 3).contiguous()
         x5 = self.multimodal_decode_conv(x5)
         if premasked:
-            return self.decoder_fuse(*feats, x5, pm_mask=mask[0])
-        return self.decoder_fuse(*[mask_channels(f, mask) for f in feats], x5)
+            return self.decoder_fuse(*feats, x5, pm_mask=mask[0], heads=heads)
+        return self.decoder_fuse(*[mask_channels_lanes(f, lanes)
+                                   for f in feats], x5, heads=heads)
 
 
 class MMFormer(nn.Module):
-    """mmFormer backbone, inference (mmformer.py:334-477)."""
+    """mmFormer backbone with the PASSION training outputs
+    (mmformer.py:334-554)."""
+
+    # Deep-supervision schedule: preds at 1/2..1/16 resolution
+    # (mmformer.py:354-357).
+    PRM_WEIGHTS = (0.5, 0.25, 0.125, 0.0625)
+    PRM_UPSCALES = (2, 4, 8, 16)
 
     def __init__(self, num_cls: int = 4, basic_dims: int = 8,
                  mask_type: str = "idt", patch_size: int = 80,
@@ -156,13 +226,15 @@ class MMFormer(nn.Module):
         self.intra_transformers = nn.ModuleList(
             Transformer(trans_dim, depth, heads, mlp_dim)
             for _ in range(NUM_MODALS))
+        self.decoder_sep = DecoderSep(num_cls, basic_dims)
         self.fuse_path = FusePath(num_cls, basic_dims, trans_dim, heads,
                                   mlp_dim, depth)
         t = (patch_size // 16) ** 3
         # learned per-modality positional embeddings, zero at init
         self.pos = nn.Parameter(torch.zeros(NUM_MODALS, 1, t, trans_dim))
 
-    def _intra(self, x5: torch.Tensor) -> torch.Tensor:
+    def _intra(self, x5: torch.Tensor,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         """Bottleneck (B, 4*16c, s, s, s) -> IntraFormer tokens (B, 4, T, D).
         Tokens are in (h, w, z) row-major order and modality-major on
         channels, as the JAX package's channels-last reshape gives them."""
@@ -175,7 +247,7 @@ class MMFormer(nn.Module):
                 f"the matching patch_size")
         tok = self.encode_convs(x5).permute(0, 2, 3, 4, 1).reshape(
             b, t, NUM_MODALS, self.trans_dim).transpose(1, 2)
-        return torch.stack([tr(tok[:, m], self.pos[m])
+        return torch.stack([tr(tok[:, m], self.pos[m], generator)
                             for m, tr in enumerate(self.intra_transformers)],
                            dim=1)
 
@@ -184,17 +256,24 @@ class MMFormer(nn.Module):
         return self.pos.transpose(0, 1).reshape(1, NUM_MODALS * t,
                                                 self.trans_dim)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x: (B, 4, H, W, Z); mask: (B, 4) bool. Softmax (B, num_cls, ...)."""
+    def encode(self, x: torch.Tensor, mask: torch.Tensor,
+               generator: torch.Generator | None = None):
+        """(five flat scales (B, 4*C_k, ...), masked in 'idt'; IntraFormer
+        tokens (B, 4, T, D), masked; pos_all) (mmformer.py:388-419)."""
         idt = self.mask_type != "pdt"
         if idt:
             x = x * mask.to(x.dtype)[:, :, None, None, None]
         feats = self.encoders(x)
         if idt:
-            feats = tuple(mask_channels(f, mask) for f in feats)
-        intra = mask_modalities(self._intra(feats[4]), mask)
-        logits = self.fuse_path(feats[:4], intra, self.pos_all(), mask)
-        return torch.softmax(logits, dim=1)
+            feats = tuple(mask_channels_lanes(f, mask[None]) for f in feats)
+        intra = mask_modalities(self._intra(feats[4], generator), mask)
+        return feats, intra, self.pos_all()
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x: (B, 4, H, W, Z); mask: (B, 4) bool. Softmax (B, num_cls, ...)."""
+        feats, intra, pos_all = self.encode(x, mask)
+        return torch.softmax(self.fuse_path(feats[:4], intra, pos_all, mask),
+                             dim=1)
 
     def features(self, x: torch.Tensor) -> dict:
         """Mask-independent window features for the sweep. Each scale's
@@ -215,3 +294,75 @@ class MMFormer(nn.Module):
         logits = self.fuse_path(feats, fts["intra"], self.pos_all(), mask,
                                 premasked=True)
         return torch.softmax(logits, dim=1)
+
+    def train_losses(self, x: torch.Tensor, mask: torch.Tensor,
+                     target: torch.Tensor, temp: float = 1.0,
+                     use_passion: bool = True,
+                     generator: torch.Generator | None = None) -> dict:
+        """Training forward with in-graph per-sample losses
+        (mmformer.py:479-554). x (B, 4, H, W, Z); mask (B, 4) bool; target
+        (B, num_cls, H, W, Z) one-hot. `generator` turns dropout on.
+        Returns fuse_pred (B, num_cls, ...) and the (B, 1) / (B, 4) float32
+        loss columns prm_loss, sep_loss, kl_loss, proto_loss, dist."""
+        idt = self.mask_type != "pdt"
+        b, k_cls = x.shape[0], self.num_cls
+        feats, intra, pos_all = self.encode(x, mask, generator)
+
+        masks = unimodal_mask_stack(mask) if use_passion else mask[None]
+        lanes = masks.shape[0]
+        fuse_logits, prms, de_feats = self.fuse_path(
+            feats[:4], intra, pos_all, masks, generator=generator, heads=True)
+
+        def lane(t: torch.Tensor, i: int) -> torch.Tensor:
+            return t.reshape((lanes, b) + tuple(t.shape[1:]))[i]
+
+        sep = self.decoder_sep(*[split_modalities(f) for f in feats])
+        sep = sep.reshape((NUM_MODALS, b) + tuple(sep.shape[1:]))
+        modal_gate = (mask.to(torch.float32) if idt else
+                      torch.ones((b, NUM_MODALS), device=x.device))
+        gate5 = modal_gate[:, :, None, None, None]
+        sep_cols = []
+        for m in range(NUM_MODALS):
+            p = sep[m] * gate5[:, m:m + 1] if idt else sep[m]
+            sep_cols.append(losses.softmax_weighted_loss_bs(p, target, k_cls)
+                            + losses.dice_loss_bs(p, target, k_cls))
+        sep_loss = torch.cat(sep_cols, dim=1) * modal_gate
+
+        prm_loss = torch.zeros((b, 1), device=x.device)
+        for k, (w, up) in enumerate(zip(self.PRM_WEIGHTS, self.PRM_UPSCALES)):
+            p = torch.softmax(lane(prms[k], 0), dim=1)
+            prm_loss = prm_loss + w * (
+                losses.softmax_weighted_loss_bs(p, target, k_cls, up_scale=up)
+                + losses.dice_loss_bs(p, target, k_cls, up_scale=up))
+
+        fuse_pred = torch.softmax(lane(fuse_logits, 0), dim=1)
+        if not use_passion:
+            zeros = torch.zeros((b, NUM_MODALS), device=x.device)
+            return dict(fuse_pred=fuse_pred, prm_loss=prm_loss,
+                        sep_loss=sep_loss, kl_loss=zeros, proto_loss=zeros,
+                        dist=zeros)
+
+        kl_cols, proto_cols, dist_cols = [], [], []
+        teacher_fuse = lane(fuse_logits, 0).detach()
+        teacher_feat = lane(de_feats[0], 0).detach()
+        for m in range(NUM_MODALS):
+            kl = losses.temp_kl_loss_bs(lane(fuse_logits, m + 1), teacher_fuse,
+                                        target, k_cls, temp)
+            for k, (w, up) in enumerate(zip(self.PRM_WEIGHTS,
+                                            self.PRM_UPSCALES)):
+                kl = kl + w * losses.temp_kl_loss_bs(
+                    lane(prms[k], m + 1), lane(prms[k], 0).detach(), target,
+                    k_cls, temp, up_scale=up)
+            proto, dist = losses.prototype_passion_loss_bs(
+                lane(de_feats[0], m + 1), teacher_feat, target,
+                lane(fuse_logits, m + 1), teacher_fuse, k_cls, temp)
+            kl_cols.append(kl)
+            proto_cols.append(proto)
+            dist_cols.append(dist)
+
+        kl_loss = torch.cat(kl_cols, dim=1) * modal_gate
+        proto_loss = torch.cat(proto_cols, dim=1) * modal_gate
+        dist = torch.cat(dist_cols, dim=1) * modal_gate
+        dist = zero_unimodal_self_dist(dist, mask)
+        return dict(fuse_pred=fuse_pred, prm_loss=prm_loss, sep_loss=sep_loss,
+                    kl_loss=kl_loss, proto_loss=proto_loss, dist=dist)

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on a card: K1 + K2 against their plain PyTorch
-version, and the model's kernel path against its plain-norm path. Marked
+"""The port's CUDA kernels on a card: K1 + K2 (forward) and K3 + K4
+(backward) against their plain PyTorch version, the autograd Function's
+gradient against autograd of the plain forward, and the model's kernel
+path against its plain-norm path, for inference and one train step. Marked
 `gpu`; each test decides inside itself whether a card is present and skips
 without one. This file imports torch and the port only (a GPU machine need
 not have JAX), so it runs there without tests/conftest.py, which imports
@@ -100,3 +102,89 @@ def test_model_kernel_path_matches_plain_norm(card, monkeypatch):
         ref = net.fuse_inference(net.features(x), mask)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(got, fwd, rtol=0, atol=1e-5)
+
+
+def _ulp_bf16(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |v| (8 bits of mantissa), at least the smallest
+    normal's."""
+    e = torch.floor(torch.log2(v.abs().float().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("shape,dtype,pg", [
+    ((5, 32, 80, 80, 80), torch.bfloat16, 1),  # fuse lanes, scale 1
+    ((4, 16, 40, 40, 40), torch.bfloat16, 1),  # sep decoder, scale 2
+    ((2, 512, 5, 5, 5), torch.bfloat16, 1),  # RFM5 rows: scalar path
+    ((2, 64, 20, 20, 20), torch.float32, 8),  # phase_group 8
+    ((2, 512, 5, 5, 5), torch.float32, 1),
+])
+def test_backward_kernels_match_plain(card, shape, dtype, pg):
+    x = (torch.randn(shape, generator=card, device="cuda") * 3 + 1).to(dtype)
+    g = torch.randn(shape, generator=card, device="cuda").to(dtype)
+    st = tfn.norm_stats(x, phase_group=pg)
+    k3, k4 = tfn.norm_bwd_stats.launches, tfn.norm_bwd_apply.launches
+    b = tfn.norm_bwd_stats(x, g, st, phase_group=pg)
+    dx = tfn.norm_bwd_apply(x, g, st, b, phase_group=pg)
+    torch.cuda.synchronize()
+    assert (tfn.norm_bwd_stats.launches, tfn.norm_bwd_apply.launches) == (
+        k3 + 1, k4 + 1)
+    b_p = tfn.norm_bwd_stats_plain(x, g, st, phase_group=pg)
+    torch.testing.assert_close(b, b_p, rtol=1e-4, atol=1e-5)
+    # with the same row statistics, dx differs by the float rounding of
+    # the two orders of operation, then one rounding to x's dtype
+    dx_p = tfn.norm_bwd_apply_plain(x, g, st, b, phase_group=pg)
+    if dtype == torch.bfloat16:
+        assert ((dx.float() - dx_p.float()).abs()
+                <= _ulp_bf16(dx_p) + 1e-6).all()
+    else:
+        torch.testing.assert_close(dx, dx_p, rtol=1e-5, atol=1e-5)
+
+
+def test_autograd_gradient_matches_plain_autograd(card):
+    """float32: the Function's K3 + K4 gradient against torch.autograd of
+    the plain forward."""
+    x = (torch.randn((3, 32, 24, 24, 24), generator=card, device="cuda") * 2
+         + 0.5).requires_grad_()
+    w = torch.randn(x.shape, generator=card, device="cuda")
+    (gk,) = torch.autograd.grad((tfn.instance_norm_lrelu(x) * w).sum(), x)
+    (gp,) = torch.autograd.grad((tfn.instance_norm_lrelu_plain(x) * w).sum(),
+                                x)
+    torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-4)
+
+
+def test_train_step_kernel_path_matches_plain_norm(card, monkeypatch):
+    """One float32 train step of a small mmFormer: loss and updated params
+    through K1-K4 against the same step with the plain norm."""
+    from passion_tpu_torch.engine import schedule, train_loop
+    from passion_tpu_torch.models import get_model, init_model
+
+    def run():
+        net = init_model(get_model("mmformer", patch_size=32, basic_dims=4,
+                                   trans_dim=32, mlp_dim=64, heads=4),
+                         seed=0).to("cuda")
+        opt = schedule.make_optimizer(net.parameters())
+        schedule.set_learning_rate(opt, 2e-4)
+        step = train_loop.make_train_step(net, opt, True, compute_dtype=None)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        labels = torch.randint(0, 4, (2, 32, 32, 32), generator=gen,
+                               device="cuda")
+        batch = dict(
+            x=torch.randn((2, 4, 32, 32, 32), generator=gen, device="cuda"),
+            target=torch.nn.functional.one_hot(labels, 4).permute(
+                0, 4, 1, 2, 3).float().contiguous(),
+            mask=torch.tensor([[1, 1, 1, 1], [1, 0, 1, 0]], dtype=torch.bool,
+                              device="cuda"))
+        m = step(batch, torch.ones(4, device="cuda"),
+                 torch.ones(4, device="cuda"), 4.0)
+        return m, net
+
+    k3 = tfn.norm_bwd_stats.launches
+    m_k, net_k = run()
+    assert tfn.norm_bwd_stats.launches > k3
+    monkeypatch.setattr(tfn, "instance_norm_lrelu",
+                        tfn.instance_norm_lrelu_plain)
+    m_p, net_p = run()
+    torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-4,
+                               atol=1e-5)
+    for (name, a), b in zip(net_k.named_parameters(), net_p.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4, msg=name)

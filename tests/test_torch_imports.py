@@ -5,6 +5,7 @@ of falling back to the CPU. The import check runs in a subprocess because
 this test process (tests/conftest.py) has jax loaded already."""
 
 import ast
+import glob
 import json
 import os
 import subprocess
@@ -39,6 +40,7 @@ def test_importing_the_port_loads_no_jax():
                          check=True)
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert "passion_tpu_torch.eval" in probe["imported"]
+    assert "passion_tpu_torch.train" in probe["imported"]
     assert "passion_tpu_torch.ops.fused_norm" in probe["imported"]
     assert [m for m in probe["modules"] if _forbidden(m)] == []
 
@@ -51,8 +53,13 @@ def test_name_prefix_rule():
     assert not _forbidden("jaxtyping")
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py",
-                                  "passion_tpu_torch/eval.py"])
+PORT_SOURCES = ["chip_smoke.py"] + sorted(
+    os.path.relpath(p, REPO) for p in glob.glob(
+        os.path.join(REPO, "passion_tpu_torch", "**", "*.py"),
+        recursive=True))
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
 def test_sources_import_no_jax(path):
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read())
@@ -62,7 +69,9 @@ def test_sources_import_no_jax(path):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
-    assert names and not [n for n in names if _forbidden(n)]
+    assert not [n for n in names if _forbidden(n)]
+    if not path.endswith("__init__.py"):
+        assert names  # the walk found the file's imports
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -106,10 +106,15 @@ def test_npz_loader_matches_tree_converter(pair, tmp_path):
 
 
 def test_converter_skips_training_only_params(pair):
+    """The training-only modules are no longer skipped: one JAX tree gives
+    the whole port state_dict, the shared decoder and the deep-supervision
+    heads included."""
     _, params, tm, _ = pair
     sd = mmformer_from_jax_params(params)
-    assert not any(k.startswith("decoder_sep") or ".seg_d" in k for k in sd)
-    assert len(sd) == len(tm.state_dict())
+    assert any(k.startswith("decoder_sep.") for k in sd)
+    assert {f"fuse_path.decoder_fuse.seg_d{k}.weight" for k in range(1, 5)
+            } <= set(sd)
+    assert set(sd) == set(tm.state_dict())
 
 
 def test_init_model_follows_the_jax_scheme():
