@@ -363,3 +363,19 @@ def test_update_imb_beta_matches_jax():
         np.testing.assert_array_equal(beta, jbeta)
         np.testing.assert_array_equal(rp, jrp)
         assert eta == jeta
+
+
+def test_ragged_batch_is_padded_with_invalid_rows():
+    """`fit` pads a short last batch to the batch size by repeating sample
+    0 with valid = 0, so the step keeps one shape."""
+    rng = np.random.default_rng(8)
+    host = dict(x=rng.standard_normal((1, 4, 2, 2, 2)).astype(np.float32),
+                target=np.ones((1, 4, 2, 2, 2), np.float32),
+                mask=np.array([UNI], bool), name=["a"])
+    dev = tloop._to_device(host, 3, torch.device("cpu"))
+    assert dev["x"].shape[0] == 3 and dev["x"].dtype == torch.float32
+    torch.testing.assert_close(dev["valid"], torch.tensor([1.0, 0.0, 0.0]))
+    for k in ("x", "target", "mask"):
+        assert torch.equal(dev[k][2], dev[k][0])
+    full = tloop._to_device(host, 1, torch.device("cpu"))
+    torch.testing.assert_close(full["valid"], torch.tensor([1.0]))
