@@ -24,9 +24,14 @@ Phases (each raises on failure; any failure exits non-zero):
   5. entry point: `passion_tpu_torch.eval.main` on two synthetic cases;
   6. kernel timing at the largest main-path shape, beside the bandwidth
      bound, the plain version and one PyTorch library call; the timed
-     outputs are held against the plain version.
+     outputs are held against the plain version;
+  10, 11. phases 4, 4b and 5 for RFNet (10, 10b, 10c) and M2FTrans (11,
+     11b, 11c) at their published widths: each sweep's K1/K2 launches,
+     every distinct norm input held against the plain version, the window
+     batch held at 75 (no out-of-memory fallback), the float32 check,
+     times, a trace, the eval CLI with `--model`.
 
-  Training (the sweep's tensors are freed first):
+  Training (the sweeps' tensors are freed first):
 
   3b. backward kernels K3/K4 vs their plain version at the training
      step's shapes, bf16 and float32, the large-mean case against float64,
@@ -43,8 +48,15 @@ Phases (each raises on failure; any failure exits non-zero):
   8. entry point: `passion_tpu_torch.train.main` on synthetic cases at
      full width, 1 epoch x 2 iterations, then `--resume` for epoch 2;
   9. K3/K4 timing at the largest training shape, beside the bandwidth
-     bound, the plain version and the library's backward.
+     bound, the plain version and the library's backward;
+  12, 13. phases 7, 7b and 8 for RFNet (12, 12b, 12c; no dropout) and
+     M2FTrans (13, 13b, 13c): K1-K4 launches per step, steps/s, peak
+     memory, the float32 kernel-vs-plain-norm step, a trace, the train CLI
+     with `--model` for 1 epoch x 2 iterations.
 
+The kernels' JSON lists each kernel's launches on every path
+(`launches_by_path`: one sweep and the timed train steps of each
+backbone); `launches` is mmFormer's, the first main path.
 TF32 stays at torch's default (as `passion_tpu_torch.eval` and `.train`
 run) except around the float32 comparisons, where it is off.
 The last two lines are the kernels' JSON record and
@@ -80,11 +92,16 @@ OPS_PER_ELEMENT = 4  # K1: sub, add, fma (2); K2: sub, mul, compare, mul
 # K3: sub, mul, round-compare, select-mul, add, fma; K4: those less the
 # sums, plus sub, fma, mul
 OPS_PER_ELEMENT_BWD = 8
-NORM_SITES_ENCODE = 18  # instance_norm_lrelu calls per features() chunk
-NORM_SITES_FUSE = 23  # ... per fuse_inference() chunk
-# per PASSION train step: 14 encoder + 27 five-lane fuse path + 12
-# four-modality sep decoder, each with one backward
-NORM_SITES_TRAIN = 14 + 27 + 12
+# instance_norm_lrelu calls of each backbone, counted from the code: per
+# features() chunk, per fuse_inference() chunk, and per PASSION train step
+# (encoder + five-lane fuse path + four-modality sep decoder, each with one
+# backward)
+NORM_SITES = {
+    "mmformer": dict(encode=18, fuse=23, train=14 + 27 + 12),
+    "rfnet": dict(encode=12, fuse=49, train=12 + 49 + 9),
+    "m2ftrans": dict(encode=15, fuse=28, train=15 + 28 + 12),
+}
+BACKBONES = ("mmformer", "rfnet", "m2ftrans")
 TRAIN_STEPS = 5  # timed full-width train steps (after 2 untimed ones)
 KERNELS = ("K1", "K2", "K3", "K4")
 
@@ -203,6 +220,8 @@ def phase_kernels(torch, fn):
     cases = [((WINDOWS, 32, 80, 80, 80), torch.bfloat16, 1),  # scale 1
              ((WINDOWS, 64, 40, 40, 40), torch.bfloat16, 1),  # scale 2
              ((WINDOWS, 128, 20, 20, 20), torch.bfloat16, 1),  # scale 3
+             ((WINDOWS, 2, 80, 80, 80), torch.bfloat16, 1),  # RFNet PRM emb
+             ((WINDOWS, 256, 10, 10, 10), torch.bfloat16, 1),  # RFNet 4th
              ((WINDOWS, 512, 5, 5, 5), torch.bfloat16, 1),  # RFM5, scalar
              ((2, 64, 20, 20, 20), torch.bfloat16, 8),  # phase_group 8
              ((2, 64, 8, 8, 8), torch.float32, 1)]
@@ -235,14 +254,17 @@ def phase_kernels(torch, fn):
     return err
 
 
-def phase_main_path(torch, fn, card, err):
-    """Phase 4: the full-width 15-mask sweep of one 240x240x155 case.
-    Folds the on-path check's errors into `err`."""
+def phase_main_path(torch, fn, card, err, name):
+    """Phases 4, 10, 11: the full-width 15-mask sweep of one 240x240x155
+    case by backbone `name`. Folds the on-path check's errors into `err`;
+    returns the model, the launches, the engine, the prepared case and the
+    times."""
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.masks import MASK_ARRAY
     from passion_tpu_torch.models import get_model, init_model
 
-    model = init_model(get_model("mmformer"), seed=0)  # full width, patch 80
+    model = init_model(get_model(name), seed=0)  # full width, patch 80
+    sites = NORM_SITES[name]
     vol = np.random.default_rng(0).standard_normal(VOLUME + (4,)).astype(
         np.float32)
     masks = [np.asarray(m) for m in MASK_ARRAY]
@@ -261,7 +283,7 @@ def phase_main_path(torch, fn, card, err):
     first_s = time.perf_counter() - t0
     launches = counts(fn)
     chunks = -(-n_win // prepared["window_batch"])
-    expect = chunks * (NORM_SITES_ENCODE + 15 * NORM_SITES_FUSE)
+    expect = chunks * (sites["encode"] + 15 * sites["fuse"])
     log(f"  first sweep (cuDNN set-up and the on-path check included) "
         f"{first_s:.3f} s; launches {launches} (expected {expect} of K1 "
         f"and K2, none of K3/K4)")
@@ -276,6 +298,9 @@ def phase_main_path(torch, fn, card, err):
         err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
     if sum(c for c, _, _ in seen.values()) != launches["K1"]:
         raise AssertionError("norm calls and K1 launches disagree")
+    if prepared["window_batch"] != WINDOWS:
+        raise AssertionError(f"the sweep fell back to a window batch of "
+                             f"{prepared['window_batch']} (out of memory)")
     if len(labels) != 15:
         raise AssertionError(f"{len(labels)} label volumes, expected 15")
     for lab in labels:
@@ -306,7 +331,10 @@ def phase_main_path(torch, fn, card, err):
         sweeps.append(time.perf_counter() - t0)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rate = [15 / s for s in sweeps]
-    log(f"  [{card}] encode {encode_ms:.1f} ms; fuse pass mean "
+    if prepared["window_batch"] != WINDOWS:
+        raise AssertionError("the timed sweeps fell back to a smaller "
+                             "window batch (out of memory)")
+    log(f"  [{card}] {name}: encode {encode_ms:.1f} ms; fuse pass mean "
         f"{np.mean(fuse_ms):.1f} ms (min {min(fuse_ms):.1f}, max "
         f"{max(fuse_ms):.1f}); sweep {[round(s, 4) for s in sweeps]} s -> "
         f"{[round(r, 4) for r in rate]} mask-cases/s; peak memory "
@@ -332,6 +360,7 @@ def phase_main_path(torch, fn, card, err):
         f"plain-norm probs max err "
         f"{(p_kernel - p_plain).abs().max().item():.3g}, fuse(features) vs "
         f"forward {(p_kernel - p_fwd).abs().max().item():.3g} (atol 1e-4)")
+    del net, x, p_kernel, p_fwd, p_plain
     return model, launches, engine, prepared
 
 
@@ -372,9 +401,9 @@ def report_trace(prof, wall_ms: float, label: str, card: str,
     return dict(wall_ms=wall_ms, busy_ms=busy, norm_ms=norm)
 
 
-def phase_profile(torch, engine, prepared, card):
-    """Phase 4b: torch.profiler over one encode and one fuse pass of the
-    main path's case, after its sweeps have set up cuDNN. For
+def phase_profile(torch, engine, prepared, card, name):
+    """Phases 4b, 10b, 11b: torch.profiler over one encode and one fuse
+    pass of the sweep's case, after its sweeps have set up cuDNN. For
     each: host-clock wall time, summed kernel time and their ratio (the
     device's busy share; the kernels run on one stream, so they do not
     overlap), the share of K1 + K2 and the kernels that take the most
@@ -399,24 +428,26 @@ def phase_profile(torch, engine, prepared, card):
                 engine._labels_device(prepared, fts, mask)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        report_trace(prof, wall_ms, phase, card)
+        report_trace(prof, wall_ms, f"{name} {phase}", card)
     del fts
 
 
-def phase_entry_point(torch, fn, model):
-    """Phase 5: `python -m passion_tpu_torch.eval`'s main on 2 cases."""
+def phase_entry_point(torch, fn, model, name):
+    """Phases 5, 10c, 11c: `python -m passion_tpu_torch.eval --model name`
+    on 2 cases."""
     from passion_tpu_torch import eval as port_eval
     from passion_tpu_torch.data.synth import make_synthetic_dataset
 
-    data, out = os.path.join(WORK, "data"), os.path.join(WORK, "out")
-    make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80), seed=0)
-    ckpt = os.path.join(WORK, "mmformer.pt")
+    data, out = os.path.join(WORK, "data"), os.path.join(WORK, f"out_{name}")
+    if not os.path.isdir(data):
+        make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80), seed=0)
+    ckpt = os.path.join(WORK, f"{name}.pt")
     torch.save(model.state_dict(), ckpt)
     reset_counts(fn)
-    port_eval.main(["--model", "mmformer", "--resume", ckpt, "--dataroot",
+    port_eval.main(["--model", name, "--resume", ckpt, "--dataroot",
                     data, "--datapath", ".", "--savepath", out])
     launches = (fn.norm_stats.launches, fn.norm_apply.launches)
-    with open(os.path.join(out, "mmformer.csv")) as f:
+    with open(os.path.join(out, f"{name}.csv")) as f:
         rows = list(csv.reader(f))
     if rows[0][-1] != "ET HD95ETPro HD95" or len(rows) != 1 + 15 * 3:
         raise AssertionError(f"unexpected CSV layout: {len(rows)} rows")
@@ -429,8 +460,8 @@ def phase_entry_point(torch, fn, model):
     if min(launches) <= 0:
         raise AssertionError(f"a kernel of the eval path never ran: "
                              f"{launches}")
-    log(f"  eval CSV: 15 mask sections x 2 cases, finite scores; launches "
-        f"K1 {launches[0]}, K2 {launches[1]}")
+    log(f"  {name} eval CSV: 15 mask sections x 2 cases, finite scores; "
+        f"launches K1 {launches[0]}, K2 {launches[1]}")
 
 
 def phase_timing(torch, fn, err):
@@ -511,6 +542,7 @@ def phase_backward_kernels(torch, fn, err):
     cases = [((5, 32, 80, 80, 80), torch.bfloat16),  # fuse lanes, scale 1
              ((1, 32, 80, 80, 80), torch.bfloat16),  # encoder, scale 1
              ((4, 16, 80, 80, 80), torch.bfloat16),  # sep decoder, scale 1
+             ((5, 2, 80, 80, 80), torch.bfloat16),  # RFNet PRM embedding
              ((5, 512, 5, 5, 5), torch.bfloat16),  # RFM5 rows: scalar path
              ((5, 32, 80, 80, 80), torch.float32),
              ((5, 512, 5, 5, 5), torch.float32)]
@@ -582,15 +614,16 @@ def train_batch(torch):
             "mask": torch.from_numpy(masks).cuda()}
 
 
-def train_setup(torch, compute_dtype, with_dropout):
-    """The full-width model (seed 0), its optimizer at lr 2e-4 and the
-    train step, as `passion_tpu_torch.engine.train_loop.fit` builds them."""
+def train_setup(torch, compute_dtype, with_dropout, name):
+    """The full-width model `name` (seed 0), its optimizer at lr 2e-4 and
+    the train step, as `passion_tpu_torch.engine.train_loop.fit` builds
+    them."""
     from passion_tpu_torch.engine.schedule import (make_optimizer,
                                                    set_learning_rate)
     from passion_tpu_torch.engine.train_loop import make_train_step
     from passion_tpu_torch.models import get_model, init_model
 
-    model = init_model(get_model("mmformer", mask_type="idt"), seed=0).cuda()
+    model = init_model(get_model(name, mask_type="idt"), seed=0).cuda()
     opt = make_optimizer(model.parameters(), 1e-4)
     set_learning_rate(opt, 2e-4)
     step = make_train_step(model, opt, use_passion=True,
@@ -599,15 +632,16 @@ def train_setup(torch, compute_dtype, with_dropout):
     return model, step
 
 
-def phase_train(torch, fn, card) -> dict:
-    """Phase 7: the full-width PASSION train step, bf16 over float32
-    master params, dropout on, as `fit` runs it."""
+def phase_train(torch, fn, card, name) -> dict:
+    """Phases 7, 12, 13: the full-width PASSION train step of `name`, bf16
+    over float32 master params, dropout on where the backbone has it, as
+    `fit` runs it."""
     batch = train_batch(torch)
     ones = torch.ones(4, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    model, step = train_setup(torch, torch.bfloat16, True)
+    model, step = train_setup(torch, torch.bfloat16, name != "rfnet", name)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  mmFormer full width: {n_params / 1e6:.2f} M params")
+    log(f"  {name} full width: {n_params / 1e6:.2f} M params")
 
     def one():
         return step(batch, ones, ones, 4.0, gen, False)
@@ -632,20 +666,22 @@ def phase_train(torch, fn, card) -> dict:
     losses = [v.item() for v in losses]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    expect = TRAIN_STEPS * NORM_SITES_TRAIN
+    per_step = NORM_SITES[name]["train"]
+    expect = TRAIN_STEPS * per_step
     log(f"  launches over {TRAIN_STEPS} steps {launches} (expected "
-        f"{expect} each: {NORM_SITES_TRAIN} norm sites per step)")
+        f"{expect} each: {per_step} norm sites per step)")
     if launches != {k: expect for k in KERNELS}:
         raise AssertionError(f"launches {launches}, expected {expect} each")
-    log(f"  [{card}] {step_ms:.3f} ms per step -> "
+    log(f"  [{card}] {name}: {step_ms:.3f} ms per step -> "
         f"{1e3 / step_ms:.4f} steps/s; peak memory {peak_gib:.2f} GiB; "
         f"losses {[round(v, 4) for v in losses]}")
     return dict(launches=launches, step_ms=step_ms, peak_gib=peak_gib,
                 step=one)
 
 
-def phase_train_profile(torch, run, card) -> dict:
-    """Phase 7b: torch.profiler over one full-width train step."""
+def phase_train_profile(torch, run, card, name) -> dict:
+    """Phases 7b, 12b, 13b: torch.profiler over one full-width train
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -654,12 +690,12 @@ def phase_train_profile(torch, run, card) -> dict:
         run["step"]()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return report_trace(prof, wall_ms, "train step", card, top=30)
+    return report_trace(prof, wall_ms, f"{name} train step", card, top=30)
 
 
-def phase_train_float32(torch, fn):
-    """Phase 7, float32: one step (TF32 off, dropout off) of the same
-    model and batch on the kernel path and on the plain-norm path. Held
+def phase_train_float32(torch, fn, name):
+    """Phases 7, 12, 13, float32: one step (TF32 off, dropout off) of the
+    same model and batch on the kernel path and on the plain-norm path. Held
     together: the loss (rtol 1e-4), each gradient in relative L2 (2e-2;
     all of them together 5e-3) and the updated params (atol 2 lr + 1e-6).
     Why these: the two paths' statistics differ by float rounding, which
@@ -669,13 +705,17 @@ def phase_train_float32(torch, fn):
     change of its input); the trilinear upsampling's backward also adds
     with atomics, in no fixed order. AMSGrad moves a param by about lr
     whatever the size of its gradient, so rounding-level gradients of
-    opposite sign part by 2 lr."""
+    opposite sign part by 2 lr. ModalFusion divides a region's mean
+    feature by the region's mean probability (+1e-7), so a region that
+    holds little of the probability scales those rounding differences up
+    in its gradients by the inverse of its share (1.8e-2 seen at RFM3's
+    fourth region on the first run on the card)."""
     batch = train_batch(torch)
     ones = torch.ones(4, device="cuda")
     res = {}
     with full_float32(torch):
         for path in ("kernel", "plain"):
-            model, step = train_setup(torch, None, False)
+            model, step = train_setup(torch, None, False, name)
             ctx = plain_norm(fn) if path == "plain" else contextlib.nullcontext()
             reset_counts(fn)
             torch.cuda.reset_peak_memory_stats()
@@ -692,50 +732,60 @@ def phase_train_float32(torch, fn):
             del model, step, m
             torch.cuda.empty_cache()
     k, p = res["kernel"], res["plain"]
-    if k["k3"] != NORM_SITES_TRAIN or p["k3"] != 0:
+    if k["k3"] != NORM_SITES[name]["train"] or p["k3"] != 0:
         raise AssertionError(f"K3 launches kernel {k['k3']}, plain {p['k3']}")
     if not math.isfinite(k["loss"]) or abs(k["loss"] - p["loss"]) > 1e-4 * abs(
             p["loss"]):
         raise AssertionError(f"float32 losses {k['loss']} vs {p['loss']}")
-    worst, num, den = (0.0, ""), 0.0, 0.0
+    rels, num, den = [], 0.0, 0.0
     for n, gp in p["grads"].items():
         d = (k["grads"][n] - gp).norm().item()
         num, den = num + d * d, den + gp.norm().item() ** 2
-        rel = d / max(gp.norm().item(), 1e-12)
-        if gp.norm().item() > 1e-6 and rel > worst[0]:
-            worst = (rel, n)
+        if gp.norm().item() > 1e-6:
+            rels.append((d / gp.norm().item(), n))
+    rels.sort(reverse=True)
     glob_rel = math.sqrt(num / den)
-    if worst[0] > 2e-2 or glob_rel > 5e-3:
-        raise AssertionError(f"gradients: worst {worst}, global {glob_rel}")
+    over = [(r, n) for r, n in rels
+            if r > (5e-2 if ".modal_fusion_" in n else 2e-2)]
+    if over or glob_rel > 5e-3:
+        raise AssertionError(f"gradients: {over[:5]}, global {glob_rel}")
+    worst = rels[0]
     dp = max((k["params"][n] - v).abs().max().item()
              for n, v in p["params"].items())
     if dp > 2 * 2e-4 + 1e-6:
         raise AssertionError(f"updated params differ by {dp}")
-    log(f"  float32 step, kernel vs plain-norm path: loss {k['loss']:.6f} vs "
+    log(f"  {name} float32 step, kernel vs plain-norm path: loss "
+        f"{k['loss']:.6f} vs "
         f"{p['loss']:.6f}; gradients rel L2 global {glob_rel:.3g}, worst "
-        f"{worst[0]:.3g} ({worst[1]}); updated params max diff {dp:.3g}; "
+        f"{worst[0]:.3g} ({worst[1]}), next "
+        f"{[(round(r, 5), n) for r, n in rels[1:3]]}; updated params max "
+        f"diff {dp:.3g}; "
         f"peak {k['peak']:.2f} / {p['peak']:.2f} GiB")
 
 
-def phase_train_entry(torch, fn):
-    """Phase 8: `python -m passion_tpu_torch.train`'s main at full width on
-    synthetic cases: 1 epoch x 2 iterations, then `--resume` for epoch 2."""
+def phase_train_entry(torch, fn, name, resume):
+    """Phases 8, 12c, 13c: `python -m passion_tpu_torch.train --model name`
+    at full width on synthetic cases: 1 epoch x 2 iterations, then (with
+    `resume`) `--resume` for epoch 2."""
     from passion_tpu_torch import train as port_train
     from passion_tpu_torch.data.synth import make_synthetic_dataset
     from passion_tpu_torch.engine.checkpoint import load_checkpoint
 
     data = os.path.join(WORK, "train_data")
-    make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80), seed=0)
+    if not os.path.isdir(data):
+        make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80), seed=0)
 
     def run(out, epochs, *extra):
-        port_train.main(["--dataroot", data, "--datapath", ".",
+        port_train.main(["--model", name, "--dataroot", data, "--datapath",
+                         ".",
                          "--imbmrpath", "imb_split.csv", "--savepath", out,
                          "--num_epochs", str(epochs), "--iters_per_epoch",
                          "2", "--use_passion", "--num_workers", "4", *extra])
         with open(os.path.join(out, "idt_training.txt")) as f:
             return f.read()
 
-    out1, out2 = os.path.join(WORK, "train1"), os.path.join(WORK, "train2")
+    out1 = os.path.join(WORK, f"train1_{name}")
+    out2 = os.path.join(WORK, f"train2_{name}")
     reset_counts(fn)
     t0 = time.perf_counter()
     run(out1, 1)
@@ -743,6 +793,14 @@ def phase_train_entry(torch, fn):
     ck = os.path.join(out1, "model_last.pt")
     if load_checkpoint(ck)["epoch"] != 0 or min(first.values()) <= 0:
         raise AssertionError(f"epoch-1 checkpoint or launches wrong: {first}")
+    with open(os.path.join(out1, f"{name}.csv")) as f:
+        if len(f.read().strip().splitlines()) != 1 + 15 * 3:
+            raise AssertionError("the final sweep's CSV is incomplete")
+    if not resume:
+        log(f"  {name} train CLI: epoch 1 checkpoint and the final 15-mask "
+            f"CSV written; {time.perf_counter() - t0:.1f} s; launches "
+            f"{first}")
+        return
     log_text = run(out2, 2, "--resume", ck)
     if f"resumed from {ck} at epoch 1" not in log_text or \
             "Epoch 2/2, Iter 2/2" not in log_text:
@@ -752,11 +810,10 @@ def phase_train_entry(torch, fn):
     if state["epoch"] != 1 or n_upd != {4}:
         raise AssertionError(f"resumed checkpoint: epoch {state['epoch']}, "
                              f"updates {n_upd}")
-    for out in (out1, out2):
-        with open(os.path.join(out, "mmformer.csv")) as f:
-            if len(f.read().strip().splitlines()) != 1 + 15 * 3:
-                raise AssertionError("the final sweep's CSV is incomplete")
-    log(f"  train CLI: epoch 1 checkpoint written, --resume ran epoch 2 "
+    with open(os.path.join(out2, f"{name}.csv")) as f:
+        if len(f.read().strip().splitlines()) != 1 + 15 * 3:
+            raise AssertionError("the final sweep's CSV is incomplete")
+    log(f"  {name} train CLI: epoch 1 checkpoint written, --resume ran epoch 2 "
         f"(4 updates in the optimizer state), final 15-mask CSVs written; "
         f"{time.perf_counter() - t0:.1f} s; launches of the first run "
         f"{first}")
@@ -839,61 +896,80 @@ def main() -> int:
     log("== 3. kernels vs plain version")
     errs = phase_kernels(torch, fn)
     errs.update(K3=0.0, K4=0.0)
-    log("== 4. main path: mmFormer 15-mask sweep, full width, bf16")
-    model, sweep_launches, engine, prepared = phase_main_path(
-        torch, fn, card, errs)
-    log("== 4b. profile: one encode and one fuse pass")
-    phase_profile(torch, engine, prepared, card)
-    del engine, prepared
-    log("== 5. entry point: passion_tpu_torch.eval")
-    phase_entry_point(torch, fn, model)
-    log("== 6. kernel timing")
-    t = phase_timing(torch, fn, errs)
-    del model
-    torch.cuda.empty_cache()
+    by_path = {k: {} for k in KERNELS}  # launches on each backbone's paths
+    title = {"mmformer": "mmFormer", "rfnet": "RFNet", "m2ftrans": "M2FTrans"}
+    number = {"mmformer": ("4", "5"), "rfnet": ("10", "10c"),
+              "m2ftrans": ("11", "11c")}
+    for name in BACKBONES:
+        main_no, cli_no = number[name]
+        log(f"== {main_no}. {title[name]} 15-mask sweep, full width, bf16")
+        model, launches, engine, prepared = phase_main_path(
+            torch, fn, card, errs, name)
+        for k in KERNELS:
+            by_path[k][f"sweep:{name}"] = launches[k]
+        log(f"== {main_no}b. profile: {title[name]}, one encode and one "
+            f"fuse pass")
+        phase_profile(torch, engine, prepared, card, name)
+        del engine, prepared
+        log(f"== {cli_no}. entry point: passion_tpu_torch.eval --model "
+            f"{name}")
+        phase_entry_point(torch, fn, model, name)
+        if name == "mmformer":
+            log("== 6. kernel timing")
+            t = phase_timing(torch, fn, errs)
+        del model
+        torch.cuda.empty_cache()
 
     log("== 3b. backward kernels vs plain version")
     phase_backward_kernels(torch, fn, errs)
-    log("== 7. main path: mmFormer PASSION train step, full width, bf16")
-    run = phase_train(torch, fn, card)
-    log("== 7b. profile: one train step")
-    phase_train_profile(torch, run, card)
-    del run
-    torch.cuda.empty_cache()
-    phase_train_float32(torch, fn)
-    log("== 8. entry point: passion_tpu_torch.train")
-    phase_train_entry(torch, fn)
-    log("== 9. backward kernel timing")
-    tb = phase_backward_timing(torch, fn, errs)
-    train_launches = TRAIN_STEPS * NORM_SITES_TRAIN
+    number = {"mmformer": ("7", "8"), "rfnet": ("12", "12c"),
+              "m2ftrans": ("13", "13c")}
+    for name in BACKBONES:
+        main_no, cli_no = number[name]
+        log(f"== {main_no}. {title[name]} PASSION train step, full width, "
+            f"bf16")
+        run = phase_train(torch, fn, card, name)
+        for k in KERNELS:
+            by_path[k][f"train_steps:{name}"] = run["launches"][k]
+        log(f"== {main_no}b. profile: {title[name]}, one train step")
+        phase_train_profile(torch, run, card, name)
+        del run
+        torch.cuda.empty_cache()
+        phase_train_float32(torch, fn, name)
+        log(f"== {cli_no}. entry point: passion_tpu_torch.train --model "
+            f"{name}")
+        phase_train_entry(torch, fn, name, resume=name == "mmformer")
+        if name == "mmformer":
+            log("== 9. backward kernel timing")
+            tb = phase_backward_timing(torch, fn, errs)
+    for k in KERNELS:
+        log(f"  {k} launches by path: {by_path[k]}")
 
     fwd, bwd = ("passion_tpu_torch/csrc/fused_norm.cu",
                 "passion_tpu_torch/csrc/fused_norm_bwd.cu")
     kernels = [
         dict(name="K1 instance_norm_lrelu stats", route="cuda", source=fwd,
              replaces="passion_tpu/ops/fused_norm.py:84",
-             launches=sweep_launches["K1"],
-             launches_by_path={"sweep": sweep_launches["K1"],
-                               "train_steps": train_launches},
+             launches=by_path["K1"]["sweep:mmformer"],
+             launches_by_path=by_path["K1"],
              max_abs_err=errs["K1"], ms=t["k1"], plain_ms=t["p1"],
              bound_ms=t["b1"], bound_by=t["by1"], library_ms=t["lib1"]),
         dict(name="K2 instance_norm_lrelu apply", route="cuda", source=fwd,
              replaces="passion_tpu/ops/fused_norm.py:101",
-             launches=sweep_launches["K2"],
-             launches_by_path={"sweep": sweep_launches["K2"],
-                               "train_steps": train_launches},
+             launches=by_path["K2"]["sweep:mmformer"],
+             launches_by_path=by_path["K2"],
              max_abs_err=errs["K2"], ms=t["k2"], plain_ms=t["p2"],
              bound_ms=t["b2"], bound_by=t["by2"], library_ms=None),
         dict(name="K3 instance_norm_lrelu backward row sums", route="cuda",
              source=bwd, replaces="passion_tpu/ops/fused_norm.py:221",
-             launches=train_launches,
-             launches_by_path={"sweep": 0, "train_steps": train_launches},
+             launches=by_path["K3"]["train_steps:mmformer"],
+             launches_by_path=by_path["K3"],
              max_abs_err=errs["K3"], ms=tb["k3"], plain_ms=tb["p3"],
              bound_ms=tb["b3"], bound_by=tb["by3"], library_ms=tb["lib"]),
         dict(name="K4 instance_norm_lrelu backward apply", route="cuda",
              source=bwd, replaces="passion_tpu/ops/fused_norm.py:221",
-             launches=train_launches,
-             launches_by_path={"sweep": 0, "train_steps": train_launches},
+             launches=by_path["K4"]["train_steps:mmformer"],
+             launches_by_path=by_path["K4"],
              max_abs_err=errs["K4"], ms=tb["k4"], plain_ms=tb["p4"],
              bound_ms=tb["b4"], bound_by=tb["by4"], library_ms=None),
     ]

@@ -10,6 +10,31 @@ import argparse
 import os
 from dataclasses import dataclass
 
+# the width overrides each backbone takes (M2FTrans's token width is
+# 16 * basic_dims, so it has no trans_dim; RFNet has no transformer)
+WIDTH_FLAGS = {"rfnet": ("basic_dims",),
+               "mmformer": ("basic_dims", "trans_dim", "mlp_dim", "heads",
+                            "depth"),
+               "m2ftrans": ("basic_dims", "mlp_dim", "heads", "depth")}
+
+
+def _model_kwargs(cfg) -> dict:
+    """kwargs for models.get_model beyond the reference surface: the width
+    overrides that were given and that `cfg.model` takes."""
+    return {k: getattr(cfg, k) for k in WIDTH_FLAGS.get(cfg.model, ())
+            if getattr(cfg, k)}
+
+
+def _add_width_args(p: argparse.ArgumentParser) -> None:
+    for name, ref in (("basic_dims", "8"),
+                      ("trans_dim", "512 (mmFormer)"),
+                      ("mlp_dim", "4096"), ("heads", "8"),
+                      ("depth", "1 (mmFormer), 3 (M2FTrans)")):
+        p.add_argument(f"--{name}", default=None, type=int,
+                       help=f"override the backbone's {name} (the reference "
+                            f"has {ref}; small values for smoke runs; a "
+                            f"backbone without it ignores it)")
+
 
 @dataclass
 class EvalConfig:
@@ -17,7 +42,11 @@ class EvalConfig:
     num_cls: int = 4
     mask_type: str = "idt"  # pdt | idt | idt_drop
     patch_size: int = 80
-    basic_dims: int | None = None  # backbone width override (small runs)
+    basic_dims: int | None = None  # backbone width overrides (small runs)
+    trans_dim: int | None = None
+    mlp_dim: int | None = None
+    heads: int | None = None
+    depth: int | None = None
     dataname: str = "BraTS/BRATS2020"
     datapath: str = "BraTS/BRATS2020_Training_none_npy"
     dataroot: str | None = None
@@ -29,7 +58,7 @@ class EvalConfig:
 
     @property
     def model_kwargs(self) -> dict:
-        return {"basic_dims": self.basic_dims} if self.basic_dims else {}
+        return _model_kwargs(self)
 
     @property
     def dataset_path(self) -> str:
@@ -47,9 +76,7 @@ def parse_config(argv=None) -> EvalConfig:
     p.add_argument("--num_cls", default=d.num_cls, type=int)
     p.add_argument("--mask_type", default=d.mask_type, type=str)
     p.add_argument("--patch_size", default=d.patch_size, type=int)
-    p.add_argument("--basic_dims", default=None, type=int,
-                   help="override the backbone conv width (the reference "
-                        "hardcodes 8)")
+    _add_width_args(p)
     p.add_argument("--dataname", default=d.dataname, type=str)
     p.add_argument("--datapath", default=d.datapath, type=str)
     p.add_argument("--dataroot", default=None, type=str,
@@ -98,6 +125,7 @@ class TrainConfig:
     trans_dim: int | None = None
     mlp_dim: int | None = None
     heads: int | None = None
+    depth: int | None = None
     data_parallel: int = 0  # the mesh path is not ported: must stay 0
     num_cls: int = 4
     window_batch: int = 0  # 0 = auto
@@ -111,10 +139,7 @@ class TrainConfig:
 
     @property
     def model_kwargs(self) -> dict:
-        """kwargs for models.get_model beyond the reference surface."""
-        return {k: getattr(self, k) for k in ("basic_dims", "trans_dim",
-                                              "mlp_dim", "heads")
-                if getattr(self, k)}
+        return _model_kwargs(self)
 
     @property
     def dataroot_path(self) -> str:
@@ -164,11 +189,7 @@ def parse_train_config(argv=None) -> TrainConfig:
     p.add_argument("--dataroot", default=None, type=str,
                    help="dataset root (default: ../datasets next to package)")
     p.add_argument("--patch_size", default=d.patch_size, type=int)
-    for name, ref in (("basic_dims", "8"), ("trans_dim", "512"),
-                      ("mlp_dim", "4096"), ("heads", "8")):
-        p.add_argument(f"--{name}", default=None, type=int,
-                       help=f"override the backbone's {name} (the reference "
-                            f"has {ref}; small values for smoke runs)")
+    _add_width_args(p)
     p.add_argument("--data_parallel", default=d.data_parallel, type=int)
     p.add_argument("--window_batch", default=d.window_batch, type=int)
     p.add_argument("--num_workers", default=d.num_workers, type=int)

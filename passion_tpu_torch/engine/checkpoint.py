@@ -33,20 +33,24 @@ def load_checkpoint(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_weights(path: str) -> dict:
-    """A model state_dict from a port checkpoint (a full {epoch, model,
-    optimizer} one, or a bare state_dict) or a JAX .npz."""
+def load_weights(path: str, model: str = "mmformer") -> dict:
+    """A state_dict of the backbone named `model` from a port checkpoint (a
+    full {epoch, model, optimizer} one, or a bare state_dict) or a JAX
+    .npz."""
     if path.endswith(".npz"):
-        return load_jax_npz(path)
+        return load_jax_npz(path, model)
     state = load_checkpoint(path)
     return state["model"] if "model" in state else state
 
 
 def load_pretrained_params(path: str, model: nn.Module) -> list[str]:
     """Copy into `model` every tensor of the checkpoint whose key and shape
-    it has; the rest keep their values. Returns the keys taken."""
+    it has; the rest keep their values. Returns the keys taken. A JAX .npz
+    is read as the tree of `model`'s backbone (its class name, lower-case:
+    rfnet, mmformer, m2ftrans)."""
     target = model.state_dict()
-    taken = {k: v for k, v in load_weights(path).items()
+    taken = {k: v for k, v in load_weights(
+                 path, type(model).__name__.lower()).items()
              if k in target and tuple(target[k].shape) == tuple(v.shape)}
     model.load_state_dict(taken, strict=False)
     return sorted(taken)

@@ -204,7 +204,8 @@ def _to_device(batch: dict, bp: int, device: torch.device) -> dict:
 def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
         device="cuda"):
     """The PASSION epoch loop (train.py:177-373; JAX train_loop.py:285-505),
-    bf16 over float32 master params, dropout on for mmFormer.
+    bf16 over float32 master params, dropout on for mmFormer and M2FTrans
+    (RFNet has none).
 
     model: backbone (mask_type set), initialised here with
       `models.init_model(model, cfg.seed)` and moved to `device`.

@@ -39,7 +39,7 @@ def main(argv=None):
 
     model = get_model(cfg.model, num_cls=cfg.num_cls, mask_type=cfg.mask_type,
                       patch_size=cfg.patch_size, **cfg.model_kwargs)
-    model.load_state_dict(load_weights(cfg.resume), strict=True)
+    model.load_state_dict(load_weights(cfg.resume, cfg.model), strict=True)
     logging.info("loaded %s", cfg.resume)
 
     test_set = BratsTest(TEST_TRANSFORMS, root=cfg.dataset_path,

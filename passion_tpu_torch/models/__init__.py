@@ -1,5 +1,5 @@
-"""Backbones of the port. mmFormer is ported (inference and the PASSION
-training forward); RFNet and M2FTrans follow (ROADMAP.md queue A, slice 3).
+"""Backbones of the port: RFNet, mmFormer and M2FTrans, each for inference
+(the 15-mask sweep) and the PASSION training forward.
 
 `get_model(name, ...)` resolves the reference's `--model` flag;
 `init_model(model, seed)` draws seeded weights with the JAX package's
@@ -13,21 +13,25 @@ import math
 import torch
 from torch import nn
 
-from passion_tpu_torch.models.layers import Conv3d
+from passion_tpu_torch.models.layers import Conv3d, ModalFusion
 
 
 def get_model(name: str, num_cls: int = 4, mask_type: str = "idt",
               patch_size: int = 80, **kwargs) -> nn.Module:
     """Resolve the reference's `--model` flag. `patch_size` sizes the
-    learned positional embeddings ((patch/16)^3 tokens)."""
+    transformer backbones' learned tokens ((patch/16)^3 per modality);
+    RFNet has none and takes no `patch_size`."""
+    if name == "rfnet":
+        from passion_tpu_torch.models.rfnet import RFNet
+        return RFNet(num_cls=num_cls, mask_type=mask_type, **kwargs)
     if name == "mmformer":
         from passion_tpu_torch.models.mmformer import MMFormer
         return MMFormer(num_cls=num_cls, mask_type=mask_type,
                         patch_size=patch_size, **kwargs)
-    if name in ("rfnet", "m2ftrans"):
-        raise NotImplementedError(
-            f"{name} is not ported yet: it comes with ROADMAP.md queue A, "
-            f"slice 3 (the other backbones)")
+    if name == "m2ftrans":
+        from passion_tpu_torch.models.m2ftrans import M2FTrans
+        return M2FTrans(num_cls=num_cls, mask_type=mask_type,
+                        patch_size=patch_size, **kwargs)
     raise ValueError(f"unknown model: {name!r} (rfnet | mmformer | m2ftrans)")
 
 
@@ -46,12 +50,17 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
       * the model's own `Conv3d`: He normal, variance 2 / fan_in
         (`conv_kernel_init`, layers.py:65-66), zero bias;
       * plain `nn.Conv3d` and `nn.Linear` (flax `nn.Conv` / `nn.Dense`
-        defaults): truncated LeCun normal, zero bias;
-      * LayerNorm: weight 1, bias 0; positional embeddings: 0.
+        defaults): truncated LeCun normal, zero bias; but RFNet's
+        `ModalFusion` Linears, which the JAX package gives
+        `conv_kernel_init` (layers.py:767-769): He normal, not truncated;
+      * LayerNorm: weight 1, bias 0; positional embeddings: 0; M2FTrans's
+        fusion tokens: N(0, 1) (m2ftrans.py:319-323).
     """
     g = torch.Generator(device="cpu").manual_seed(seed)
+    he_normal = {id(m) for f in model.modules()
+                 if isinstance(f, ModalFusion) for m in (f.fc1, f.fc2)}
     for mod in model.modules():
-        if isinstance(mod, Conv3d):
+        if isinstance(mod, Conv3d) or id(mod) in he_normal:
             fan_in = mod.weight[0].numel()
             w = torch.randn(mod.weight.shape, generator=g)
             mod.weight.copy_(w * math.sqrt(2.0 / fan_in))
@@ -67,4 +76,6 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
             mod.bias.zero_()
     if isinstance(getattr(model, "pos", None), nn.Parameter):
         model.pos.zero_()
+    if isinstance(getattr(model, "fusion", None), nn.Parameter):
+        model.fusion.copy_(torch.randn(model.fusion.shape, generator=g))
     return model

@@ -28,17 +28,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from passion_tpu_torch import losses
 from passion_tpu_torch.models.layers import (
     Conv3d,
+    DecoderSep,
     FusionPreNorm,
     GeneralConv3dPreNorm,
     Transformer,
     mask_channels_lanes,
     mask_modalities,
+    passion_outputs,
     split_modalities,
     unimodal_mask_stack,
-    zero_unimodal_self_dist,
 )
 from passion_tpu_torch.ops import fused_norm
 from passion_tpu_torch.ops.resize import upsample_trilinear
@@ -81,31 +81,6 @@ class GroupedEncoder(nn.Module):
             xi = xi + getattr(self, f"e{i}_c3")(getattr(self, f"e{i}_c2")(xi))
             outs.append(xi)
         return tuple(outs)
-
-
-class DecoderSep(nn.Module):
-    """Shared 5-scale per-modality decoder -> softmax (mmformer.py:119-170,
-    its non-space-to-depth branch). Inputs are single-modality scales
-    (N, C_k, ...); the training forward stacks the 4 modalities on the
-    batch axis (`split_modalities`) and runs it once."""
-
-    def __init__(self, num_cls: int = 4, basic_dims: int = 8):
-        super().__init__()
-        c = basic_dims
-        for k, ck in ((4, 8 * c), (3, 4 * c), (2, 2 * c), (1, c)):
-            setattr(self, f"d{k}_c1", GeneralConv3dPreNorm(2 * ck, ck))
-            setattr(self, f"d{k}_c2", GeneralConv3dPreNorm(2 * ck, ck))
-            setattr(self, f"d{k}_out",
-                    GeneralConv3dPreNorm(ck, ck, 1, padding=0))
-        self.seg_layer = Conv3d(c, num_cls, 1, padding=0)
-
-    def forward(self, x1, x2, x3, x4, x5) -> torch.Tensor:
-        de = x5
-        for k, xk in ((4, x4), (3, x3), (2, x2), (1, x1)):
-            de = getattr(self, f"d{k}_c1")(upsample_trilinear(de, 2))
-            de = getattr(self, f"d{k}_out")(
-                getattr(self, f"d{k}_c2")(torch.cat([de, xk], dim=1)))
-        return torch.softmax(self.seg_layer(de), dim=1)
 
 
 class DecoderFuse(nn.Module):
@@ -226,7 +201,8 @@ class MMFormer(nn.Module):
         self.intra_transformers = nn.ModuleList(
             Transformer(trans_dim, depth, heads, mlp_dim)
             for _ in range(NUM_MODALS))
-        self.decoder_sep = DecoderSep(num_cls, basic_dims)
+        self.decoder_sep = DecoderSep(num_cls, basic_dims, 5,
+                                      GeneralConv3dPreNorm)
         self.fuse_path = FusePath(num_cls, basic_dims, trans_dim, heads,
                                   mlp_dim, depth)
         t = (patch_size // 16) ** 3
@@ -304,65 +280,14 @@ class MMFormer(nn.Module):
         (B, num_cls, H, W, Z) one-hot. `generator` turns dropout on.
         Returns fuse_pred (B, num_cls, ...) and the (B, 1) / (B, 4) float32
         loss columns prm_loss, sep_loss, kl_loss, proto_loss, dist."""
-        idt = self.mask_type != "pdt"
-        b, k_cls = x.shape[0], self.num_cls
         feats, intra, pos_all = self.encode(x, mask, generator)
-
         masks = unimodal_mask_stack(mask) if use_passion else mask[None]
-        lanes = masks.shape[0]
         fuse_logits, prms, de_feats = self.fuse_path(
             feats[:4], intra, pos_all, masks, generator=generator, heads=True)
 
-        def lane(t: torch.Tensor, i: int) -> torch.Tensor:
-            return t.reshape((lanes, b) + tuple(t.shape[1:]))[i]
-
         sep = self.decoder_sep(*[split_modalities(f) for f in feats])
-        sep = sep.reshape((NUM_MODALS, b) + tuple(sep.shape[1:]))
-        modal_gate = (mask.to(torch.float32) if idt else
-                      torch.ones((b, NUM_MODALS), device=x.device))
-        gate5 = modal_gate[:, :, None, None, None]
-        sep_cols = []
-        for m in range(NUM_MODALS):
-            p = sep[m] * gate5[:, m:m + 1] if idt else sep[m]
-            sep_cols.append(losses.softmax_weighted_loss_bs(p, target, k_cls)
-                            + losses.dice_loss_bs(p, target, k_cls))
-        sep_loss = torch.cat(sep_cols, dim=1) * modal_gate
-
-        prm_loss = torch.zeros((b, 1), device=x.device)
-        for k, (w, up) in enumerate(zip(self.PRM_WEIGHTS, self.PRM_UPSCALES)):
-            p = torch.softmax(lane(prms[k], 0), dim=1)
-            prm_loss = prm_loss + w * (
-                losses.softmax_weighted_loss_bs(p, target, k_cls, up_scale=up)
-                + losses.dice_loss_bs(p, target, k_cls, up_scale=up))
-
-        fuse_pred = torch.softmax(lane(fuse_logits, 0), dim=1)
-        if not use_passion:
-            zeros = torch.zeros((b, NUM_MODALS), device=x.device)
-            return dict(fuse_pred=fuse_pred, prm_loss=prm_loss,
-                        sep_loss=sep_loss, kl_loss=zeros, proto_loss=zeros,
-                        dist=zeros)
-
-        kl_cols, proto_cols, dist_cols = [], [], []
-        teacher_fuse = lane(fuse_logits, 0).detach()
-        teacher_feat = lane(de_feats[0], 0).detach()
-        for m in range(NUM_MODALS):
-            kl = losses.temp_kl_loss_bs(lane(fuse_logits, m + 1), teacher_fuse,
-                                        target, k_cls, temp)
-            for k, (w, up) in enumerate(zip(self.PRM_WEIGHTS,
-                                            self.PRM_UPSCALES)):
-                kl = kl + w * losses.temp_kl_loss_bs(
-                    lane(prms[k], m + 1), lane(prms[k], 0).detach(), target,
-                    k_cls, temp, up_scale=up)
-            proto, dist = losses.prototype_passion_loss_bs(
-                lane(de_feats[0], m + 1), teacher_feat, target,
-                lane(fuse_logits, m + 1), teacher_fuse, k_cls, temp)
-            kl_cols.append(kl)
-            proto_cols.append(proto)
-            dist_cols.append(dist)
-
-        kl_loss = torch.cat(kl_cols, dim=1) * modal_gate
-        proto_loss = torch.cat(proto_cols, dim=1) * modal_gate
-        dist = torch.cat(dist_cols, dim=1) * modal_gate
-        dist = zero_unimodal_self_dist(dist, mask)
-        return dict(fuse_pred=fuse_pred, prm_loss=prm_loss, sep_loss=sep_loss,
-                    kl_loss=kl_loss, proto_loss=proto_loss, dist=dist)
+        return passion_outputs(
+            fuse_logits, prms, de_feats[0], sep, mask, target,
+            num_cls=self.num_cls, temp=temp, use_passion=use_passion,
+            idt=self.mask_type != "pdt", weights=self.PRM_WEIGHTS,
+            upscales=self.PRM_UPSCALES)

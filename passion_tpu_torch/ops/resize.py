@@ -1,8 +1,10 @@
-"""Trilinear upsampling (counterpart of `passion_tpu/ops/resize.py:50-83`).
+"""Trilinear and nearest upsampling (counterpart of
+`passion_tpu/ops/resize.py:50-83` and `:124-135`).
 
-The JAX version is plain XLA (per-axis interpolation matrices), pinned to
-torch's `align_corners=True` semantics by tests/test_ops.py, so here it is
-`F.interpolate` itself.
+The JAX trilinear version is plain XLA (per-axis interpolation matrices),
+pinned to torch's `align_corners=True` semantics by tests/test_ops.py, so
+here it is `F.interpolate` itself. Nearest upsampling by an integer factor
+is a repeat along each spatial axis.
 """
 
 from __future__ import annotations
@@ -22,3 +24,14 @@ def upsample_trilinear(x: torch.Tensor, scale: int,
     # norm kernels) are contiguous NCDHW.
     return F.interpolate(x, scale_factor=scale, mode="trilinear",
                          align_corners=align_corners).contiguous()
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest upsampling of (B, C, H, W, Z) by an integer `scale`, as
+    torch's `nn.Upsample(mode='nearest')`: output voxel d reads input voxel
+    floor(d / scale)."""
+    if scale == 1:
+        return x
+    for dim in (2, 3, 4):
+        x = x.repeat_interleave(scale, dim=dim)
+    return x

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card: K1 + K2 (forward) and K3 + K4
-(backward) against their plain PyTorch version, the autograd Function's
-gradient against autograd of the plain forward, and the model's kernel
-path against its plain-norm path, for inference and one train step. Marked
+(backward) against their plain PyTorch version, at the row shapes of all
+three backbones, the autograd Function's gradient against autograd of the
+plain forward, and the models' kernel path against their plain-norm path,
+for inference (mmFormer, RFNet, M2FTrans) and one train step (mmFormer). Marked
 `gpu`; each test decides inside itself whether a card is present and skips
 without one. This file imports torch and the port only (a GPU machine need
 not have JAX), so it runs there without tests/conftest.py, which imports
@@ -40,7 +41,10 @@ def card():
     ((2, 32, 80, 80, 80), torch.bfloat16, 1),  # sweep scale 1
     ((2, 64, 40, 40, 40), torch.bfloat16, 1),  # scale 2
     ((2, 128, 20, 20, 20), torch.bfloat16, 1),  # scale 3
+    ((2, 2, 80, 80, 80), torch.bfloat16, 1),  # RFNet's PRM embedding
+    ((2, 256, 10, 10, 10), torch.bfloat16, 1),  # RFNet's deepest scale
     ((2, 64, 20, 20, 20), torch.bfloat16, 8),  # phase_group 8
+    ((2, 512, 5, 5, 5), torch.bfloat16, 1),  # M2FTrans's fifth scale
     ((2, 512, 5, 5, 5), torch.float32, 1),  # 125-element rows: scalar path
 ])
 def test_kernels_match_plain(card, shape, dtype, pg):
@@ -104,6 +108,36 @@ def test_model_kernel_path_matches_plain_norm(card, monkeypatch):
     torch.testing.assert_close(got, fwd, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("name,kw,patch,sites", [
+    ("rfnet", dict(basic_dims=4), 16, 12 + 49),
+    ("m2ftrans", dict(basic_dims=2, heads=4, mlp_dim=32, depth=2), 32,
+     15 + 28),
+])
+def test_backbone_kernel_path_matches_plain_norm(card, monkeypatch, name,
+                                                 kw, patch, sites):
+    """A small RFNet / M2FTrans on the card in float32: the sweep's
+    `fuse_inference(features)` through K1 + K2 against the plain norm
+    (atol 1e-4) and against the plain forward."""
+    from passion_tpu_torch.masks import MASK_ARRAY
+    from passion_tpu_torch.models import get_model, init_model
+
+    net = init_model(get_model(name, patch_size=patch, **kw), seed=0)
+    net = net.to("cuda").eval()
+    x = torch.randn((2, 4, patch, patch, patch), generator=card,
+                    device="cuda")
+    mask = torch.as_tensor(np.stack([MASK_ARRAY[9]] * 2), device="cuda")
+    with torch.inference_mode():
+        k1 = tfn.norm_stats.launches
+        got = net.fuse_inference(net.features(x), mask)
+        assert tfn.norm_stats.launches - k1 == sites
+        fwd = net(x, mask)
+        monkeypatch.setattr(tfn, "instance_norm_lrelu",
+                            tfn.instance_norm_lrelu_plain)
+        ref = net.fuse_inference(net.features(x), mask)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got, fwd, rtol=0, atol=1e-5)
+
+
 def _ulp_bf16(v: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at |v| (8 bits of mantissa), at least the smallest
     normal's."""
@@ -114,6 +148,7 @@ def _ulp_bf16(v: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("shape,dtype,pg", [
     ((5, 32, 80, 80, 80), torch.bfloat16, 1),  # fuse lanes, scale 1
     ((4, 16, 40, 40, 40), torch.bfloat16, 1),  # sep decoder, scale 2
+    ((5, 2, 80, 80, 80), torch.bfloat16, 1),  # RFNet's PRM embedding lanes
     ((2, 512, 5, 5, 5), torch.bfloat16, 1),  # RFM5 rows: scalar path
     ((2, 64, 20, 20, 20), torch.float32, 8),  # phase_group 8
     ((2, 512, 5, 5, 5), torch.float32, 1),
