@@ -54,9 +54,32 @@ Phases (each raises on failure; any failure exits non-zero):
      memory, the float32 kernel-vs-plain-norm step, a trace, the train CLI
      with `--model` for 1 epoch x 2 iterations.
 
+  Validation, the single-mask engine and data parallelism (mmFormer):
+
+  14. the single-mask engine (`SlidingWindowInference`, the whole forward
+     per chunk) on the phase-4 case under the full mask, bf16, 75 windows:
+     K1/K2 launches against the count from the code, every distinct norm
+     input held against the plain version, its labels against the sweep
+     engine's (share of voxels that differ printed: two bf16 graphs), the
+     float32 kernel-vs-plain-norm check on two windows, cases/s over 3
+     runs, peak memory;
+  15. validation: `make_val_step` on one full-width batch (bs 1, 80^3)
+     under all 15 masks (K1/K2 per mask, no K3/K4, every distinct norm
+     input held against the plain version, ms per batch), then the train
+     CLI with `--use_valid` (2 epochs x 2 iterations): the 15 mask tags
+     and `score_average` in TensorBoard, finite;
+  16. data parallelism at world size 1 over NCCL (a process group of this
+     process): the data-parallel float32 step against the one-process
+     step (loss rtol 1e-5, gradients at phase 7's tolerances), the bf16
+     data-parallel step's steps/s and launches beside phase 7's, the
+     sharded sweep's labels against phase 4's, and the train CLI with
+     `--data_parallel 1` (and 2 where two cards are visible).
+
 The kernels' JSON lists each kernel's launches on every path
 (`launches_by_path`: one sweep and the timed train steps of each
-backbone); `launches` is mmFormer's, the first main path.
+backbone; phase 14's single-mask run, phase 15's 15-mask validation
+batch, phase 16's timed data-parallel steps and sharded sweep);
+`launches` is mmFormer's, the first main path.
 TF32 stays at torch's default (as `passion_tpu_torch.eval` and `.train`
 run) except around the float32 comparisons, where it is off.
 The last two lines are the kernels' JSON record and
@@ -101,6 +124,10 @@ NORM_SITES = {
     "rfnet": dict(encode=12, fuse=49, train=12 + 49 + 9),
     "m2ftrans": dict(encode=15, fuse=28, train=15 + 28 + 12),
 }
+# mmFormer's forward (the single-mask engine, per chunk): the encoder's 14
+# sites and the unpremasked fuse path's 27
+FORWARD_SITES = 14 + 27
+VAL_SITES = 14 + 27 + 12  # the training forward, one lane, no backward
 BACKBONES = ("mmformer", "rfnet", "m2ftrans")
 TRAIN_STEPS = 5  # timed full-width train steps (after 2 untimed ones)
 KERNELS = ("K1", "K2", "K3", "K4")
@@ -265,8 +292,7 @@ def phase_main_path(torch, fn, card, err, name):
 
     model = init_model(get_model(name), seed=0)  # full width, patch 80
     sites = NORM_SITES[name]
-    vol = np.random.default_rng(0).standard_normal(VOLUME + (4,)).astype(
-        np.float32)
+    vol = full_volume()
     masks = [np.asarray(m) for m in MASK_ARRAY]
     engine = SlidingWindowSweep(model, num_cls=4, patch=80)
     prepared = engine.prepare(vol)
@@ -361,7 +387,7 @@ def phase_main_path(torch, fn, card, err, name):
         f"{(p_kernel - p_plain).abs().max().item():.3g}, fuse(features) vs "
         f"forward {(p_kernel - p_fwd).abs().max().item():.3g} (atol 1e-4)")
     del net, x, p_kernel, p_fwd, p_plain
-    return model, launches, engine, prepared
+    return model, launches, engine, prepared, labels
 
 
 def _kernel_times(prof) -> dict[str, tuple[float, int]]:
@@ -614,10 +640,10 @@ def train_batch(torch):
             "mask": torch.from_numpy(masks).cuda()}
 
 
-def train_setup(torch, compute_dtype, with_dropout, name):
+def train_setup(torch, compute_dtype, with_dropout, name, world=None):
     """The full-width model `name` (seed 0), its optimizer at lr 2e-4 and
-    the train step, as `passion_tpu_torch.engine.train_loop.fit` builds
-    them."""
+    the train step (data-parallel over `world` if given), as
+    `passion_tpu_torch.engine.train_loop.fit` builds them."""
     from passion_tpu_torch.engine.schedule import (make_optimizer,
                                                    set_learning_rate)
     from passion_tpu_torch.engine.train_loop import make_train_step
@@ -628,7 +654,7 @@ def train_setup(torch, compute_dtype, with_dropout, name):
     set_learning_rate(opt, 2e-4)
     step = make_train_step(model, opt, use_passion=True,
                            with_dropout=with_dropout,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, world=world)
     return model, step
 
 
@@ -857,6 +883,277 @@ def phase_backward_timing(torch, fn, err) -> dict:
     return dict(k3=k3, k4=k4, p3=p3, p4=p4, lib=lib, b3=b3, b4=b4, by3=by3,
                 by4=by4)
 
+def full_volume():
+    """The seeded 240x240x155x4 case of phases 4, 14 and 16."""
+    return np.random.default_rng(0).standard_normal(VOLUME + (4,)).astype(
+        np.float32)
+
+
+def phase_single_mask(torch, fn, card, err) -> dict:
+    """Phase 14: the single-mask engine (`SlidingWindowInference`) on the
+    phase-4 case under the full mask, full-width mmFormer, bf16. Folds the
+    on-path check's errors into `err`; returns the launches."""
+    from passion_tpu_torch.engine.sliding_window import (
+        SlidingWindowInference, SlidingWindowSweep)
+    from passion_tpu_torch.masks import MASK_ARRAY
+    from passion_tpu_torch.models import get_model, init_model
+
+    model = init_model(get_model("mmformer"), seed=0)
+    mask = np.asarray(MASK_ARRAY[-1])
+    engine = SlidingWindowInference(model, num_cls=4, patch=80)
+    prepared = engine.prepare(full_volume())
+    if (len(prepared["coords"]), prepared["window_batch"]) != (WINDOWS,
+                                                               WINDOWS):
+        raise AssertionError("phase 14 runs one chunk of 75 windows")
+    seen = {}
+    reset_counts(fn)
+    with checked_norm(torch, fn, seen):
+        labels = engine.infer_labels(prepared, mask)
+    launches = counts(fn)
+    expect = FORWARD_SITES  # one chunk
+    log(f"  launches {launches} (expected {expect} of K1 and K2: the "
+        f"forward's 14 encoder + 27 fuse-path norm sites per chunk)")
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    for (shape, dt, pg), (calls, e1, e2) in seen.items():
+        log(f"    {shape} {dt} phase_group={pg}: {calls} calls; stats err "
+            f"{e1:.3g}, output err {e2:.3g}")
+        err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
+    if sum(c for c, _, _ in seen.values()) != launches["K1"]:
+        raise AssertionError("norm calls and K1 launches disagree")
+    if labels.shape != VOLUME or labels.dtype != np.uint8 or labels.max() > 3:
+        raise AssertionError(f"bad labels {labels.shape} {labels.dtype}")
+    sweep = SlidingWindowSweep(model, num_cls=4, patch=80)
+    ref = sweep.sweep_labels(sweep.prepare(full_volume()), [mask])[0]
+    del sweep
+    differ = float((labels != ref).mean())
+    log(f"  {len(seen)} distinct norm inputs held against the plain version; "
+        f"labels vs the sweep engine's (full mask, both bf16): "
+        f"{differ:.6f} of voxels differ")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.infer_labels(prepared, mask)
+        runs.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if prepared["window_batch"] != WINDOWS:
+        raise AssertionError("the timed runs fell back to a smaller window "
+                             "batch (out of memory)")
+    log(f"  [{card}] single-mask engine, one case one mask: "
+        f"{[round(r, 4) for r in runs]} s -> "
+        f"{[round(1 / r, 4) for r in runs]} cases/s; peak memory "
+        f"{peak_gib:.2f} GiB")
+
+    # kernel path against the plain-norm path of the forward, float32
+    # (TF32 off), on two windows
+    x = torch.stack([prepared["vol"][:, h:h + 80, w:w + 80, z:z + 80]
+                     for h, w, z in prepared["coords"][:2].tolist()]).float()
+    del engine, prepared
+    net = model.to("cuda", torch.float32).eval()
+    m2 = torch.as_tensor(MASK_ARRAY[10], device="cuda").expand(2, 4)
+    with torch.inference_mode(), full_float32(torch):
+        p_kernel = net(x, m2)
+        with plain_norm(fn):
+            p_plain = net(x, m2)
+    if not torch.isfinite(p_kernel).all():
+        raise AssertionError("non-finite probabilities")
+    torch.testing.assert_close(p_kernel, p_plain, rtol=0, atol=1e-4)
+    log(f"  float32, 2 windows, forward: kernel vs plain-norm probs max err "
+        f"{(p_kernel - p_plain).abs().max().item():.3g} (atol 1e-4)")
+    return launches
+
+
+def phase_validation(torch, fn, card, err) -> dict:
+    """Phase 15: the validation step of full-width mmFormer on one batch
+    (bs 1, 80^3) under all 15 masks, then the train CLI with
+    `--use_valid`. Returns the launches of the 15-mask batch."""
+    from passion_tpu_torch import train as port_train
+    from passion_tpu_torch.data.synth import make_synthetic_dataset
+    from passion_tpu_torch.engine.tb_writer import read_scalars
+    from passion_tpu_torch.engine.train_loop import make_val_step
+    from passion_tpu_torch.masks import MASK_ARRAY, MASK_NAMES
+    from passion_tpu_torch.models import get_model, init_model
+
+    model = init_model(get_model("mmformer"), seed=0).cuda()
+    val_step = make_val_step(model, 4)
+    batch = train_batch(torch)
+    masks = torch.as_tensor(MASK_ARRAY, device="cuda")
+
+    def one_batch():
+        return torch.stack([val_step(batch["x"], m[None], batch["target"],
+                                     4.0) for m in masks])
+
+    seen = {}
+    reset_counts(fn)
+    with checked_norm(torch, fn, seen):
+        losses = one_batch()
+    launches = counts(fn)
+    expect = 15 * VAL_SITES
+    log(f"  launches for one batch under 15 masks {launches} (expected "
+        f"{expect} of K1 and K2, {VAL_SITES} per mask; none of K3/K4)")
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    for (shape, dt, pg), (calls, e1, e2) in seen.items():
+        err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
+    losses = losses.cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite validation losses {losses}")
+    batch_ms = cuda_ms(one_batch, 3, 1)
+    log(f"  {len(seen)} distinct norm inputs held against the plain version; "
+        f"[{card}] {batch_ms:.3f} ms per batch (15 masks, "
+        f"{batch_ms / 15:.3f} ms per mask); losses "
+        f"{[round(float(v), 4) for v in losses]}")
+    del model, val_step, batch
+    torch.cuda.empty_cache()
+
+    data = os.path.join(WORK, "train_data")
+    if not os.path.isdir(data):
+        make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80), seed=0)
+    out = os.path.join(WORK, "train_valid")
+    t0 = time.perf_counter()
+    port_train.main(["--dataroot", data, "--datapath", ".", "--imbmrpath",
+                     "imb_split.csv", "--savepath", out, "--num_epochs", "2",
+                     "--iters_per_epoch", "2", "--use_passion",
+                     "--use_valid", "--num_workers", "4"])
+    (events,) = os.listdir(os.path.join(out, "summary"))
+    rows = read_scalars(os.path.join(out, "summary", events))
+    tags = {t for _, t, _ in rows}
+    scores = {(t, st): v for st, t, v in rows
+              if t in MASK_NAMES or t == "score_average"}
+    if not set(MASK_NAMES) | {"score_average"} <= tags or len(scores) != 32:
+        raise AssertionError(f"validation tags missing: {sorted(tags)}")
+    if not all(math.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"non-finite validation scores {scores}")
+    avg = [scores[("score_average", e)] for e in (1, 2)]
+    best = os.path.exists(os.path.join(out, "model_best.pt"))
+    if best != (avg[1] > avg[0]):
+        raise AssertionError(f"model_best.pt {best} for scores {avg}")
+    log(f"  train CLI --use_valid, 2 epochs x 2 iterations: 15 mask tags and "
+        f"score_average per epoch, finite; score_average {avg}; "
+        f"model_best.pt {'written' if best else 'not written'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
+    """Phase 16: data parallelism at world size 1 over NCCL, in a process
+    group of this process. Returns the launches of the timed bf16 steps
+    and of the sharded sweep."""
+    from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
+    from passion_tpu_torch.masks import MASK_ARRAY
+    from passion_tpu_torch.models import get_model, init_model
+    from passion_tpu_torch.parallel import world as pw
+
+    world = pw.init(0, 1, "cuda", pw.free_tcp_address(), timeout_s=120)
+    out = {}
+    try:
+        batch = train_batch(torch)
+        ones = torch.ones(4, device="cuda")
+        res = {}
+        with full_float32(torch):
+            for path in ("one", "dp"):
+                model, step = train_setup(torch, None, False, "mmformer",
+                                          world if path == "dp" else None)
+                m = step(batch, ones, ones, 4.0, None, False)
+                res[path] = dict(loss=m["loss"].item(), grads={
+                    n: p.grad.detach().clone()
+                    for n, p in model.named_parameters()})
+                del model, step, m
+                torch.cuda.empty_cache()
+        a, b = res["one"], res["dp"]
+        if abs(a["loss"] - b["loss"]) > 1e-5 * abs(a["loss"]):
+            raise AssertionError(f"losses {a['loss']} vs {b['loss']}")
+        num = den = worst = 0.0
+        for n, g in a["grads"].items():
+            d = (b["grads"][n] - g).norm().item()
+            num, den = num + d * d, den + g.norm().item() ** 2
+            if g.norm().item() > 1e-6:
+                worst = max(worst, d / g.norm().item())
+        if worst > 2e-2 or math.sqrt(num / den) > 5e-3:
+            raise AssertionError(f"gradients: worst {worst}, global "
+                                 f"{math.sqrt(num / den)}")
+        log(f"  float32 step, data-parallel (world 1, NCCL) vs one process: "
+            f"loss {b['loss']:.6f} vs {a['loss']:.6f}; gradients rel L2 "
+            f"global {math.sqrt(num / den):.3g}, worst {worst:.3g}")
+        del res, a, b
+
+        # the bf16 data-parallel step as fit runs it (dropout on)
+        model, step = train_setup(torch, torch.bfloat16, True, "mmformer",
+                                  world)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for _ in range(2):
+            step(batch, ones, ones, 4.0, gen, False)
+        torch.cuda.synchronize()
+        reset_counts(fn)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = [step(batch, ones, ones, 4.0, gen, False)["loss"]
+                  for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        out["train"] = counts(fn)
+        dp_ms = start.elapsed_time(end) / TRAIN_STEPS
+        expect = TRAIN_STEPS * NORM_SITES["mmformer"]["train"]
+        if out["train"] != {k: expect for k in KERNELS}:
+            raise AssertionError(f"launches {out['train']}, expected "
+                                 f"{expect} each")
+        if not all(math.isfinite(v.item()) for v in losses):
+            raise AssertionError("non-finite data-parallel loss")
+        log(f"  [{card}] bf16 data-parallel step: {dp_ms:.3f} ms per step -> "
+            f"{1e3 / dp_ms:.4f} steps/s (phase 7: {step_ms:.3f} ms -> "
+            f"{1e3 / step_ms:.4f}); launches over {TRAIN_STEPS} steps "
+            f"{out['train']}")
+        del model, step
+        torch.cuda.empty_cache()
+
+        # the sharded sweep at world size 1 against phase 4's labels
+        engine = SlidingWindowSweep(init_model(get_model("mmformer"), seed=0),
+                                    num_cls=4, patch=80, world=world)
+        prepared = engine.prepare(full_volume())
+        reset_counts(fn)
+        labels = engine.sweep_labels(prepared, [np.asarray(m)
+                                                for m in MASK_ARRAY])
+        out["sweep"] = counts(fn)
+        differ = [int((g != r).sum()) for g, r in zip(labels, sweep_labels)]
+        if any(differ) or out["sweep"]["K1"] != 18 + 15 * 23:
+            raise AssertionError(f"sharded sweep: {differ} voxels differ, "
+                                 f"launches {out['sweep']}")
+        log(f"  sharded sweep (world 1, window batch "
+            f"{prepared['window_batch']}): 15 label volumes equal phase 4's; "
+            f"launches {out['sweep']}")
+        del engine, prepared, labels
+        torch.cuda.empty_cache()
+    finally:
+        pw.shutdown()
+
+    from passion_tpu_torch import train as port_train
+    from passion_tpu_torch.engine.checkpoint import load_checkpoint
+
+    data = os.path.join(WORK, "train_data")
+    worlds = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    for n in worlds:
+        out_dir = os.path.join(WORK, f"train_dp{n}")
+        t0 = time.perf_counter()
+        port_train.main(["--dataroot", data, "--datapath", ".", "--imbmrpath",
+                         "imb_split.csv", "--savepath", out_dir,
+                         "--num_epochs", "1", "--iters_per_epoch", "2",
+                         "--use_passion", "--num_workers", "4",
+                         "--batch_size", str(n), "--data_parallel", str(n)])
+        state = load_checkpoint(os.path.join(out_dir, "model_last.pt"))
+        with open(os.path.join(out_dir, "mmformer.csv")) as f:
+            n_rows = len(f.read().strip().splitlines())
+        if state["epoch"] != 0 or n_rows != 1 + 15 * 3:
+            raise AssertionError(f"--data_parallel {n}: epoch "
+                                 f"{state['epoch']}, {n_rows} CSV rows")
+        log(f"  train CLI --data_parallel {n} (bs {n}): epoch-1 checkpoint "
+            f"and the final 15-mask CSV written by rank 0; "
+            f"{time.perf_counter() - t0:.1f} s")
+    return out
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "passion_tpu_torch")):
@@ -903,8 +1200,11 @@ def main() -> int:
     for name in BACKBONES:
         main_no, cli_no = number[name]
         log(f"== {main_no}. {title[name]} 15-mask sweep, full width, bf16")
-        model, launches, engine, prepared = phase_main_path(
+        model, launches, engine, prepared, labels = phase_main_path(
             torch, fn, card, errs, name)
+        if name == "mmformer":
+            sweep_labels = labels  # phase 16 holds the sharded sweep to it
+        del labels
         for k in KERNELS:
             by_path[k][f"sweep:{name}"] = launches[k]
         log(f"== {main_no}b. profile: {title[name]}, one encode and one "
@@ -931,6 +1231,8 @@ def main() -> int:
         run = phase_train(torch, fn, card, name)
         for k in KERNELS:
             by_path[k][f"train_steps:{name}"] = run["launches"][k]
+        if name == "mmformer":
+            mmformer_step_ms = run["step_ms"]
         log(f"== {main_no}b. profile: {title[name]}, one train step")
         phase_train_profile(torch, run, card, name)
         del run
@@ -942,6 +1244,24 @@ def main() -> int:
         if name == "mmformer":
             log("== 9. backward kernel timing")
             tb = phase_backward_timing(torch, fn, errs)
+
+    log("== 14. single-mask engine (SlidingWindowInference), mmFormer, full "
+        "width, bf16")
+    single = phase_single_mask(torch, fn, card, errs)
+    torch.cuda.empty_cache()
+    log("== 15. validation: make_val_step under 15 masks, train CLI "
+        "--use_valid")
+    val = phase_validation(torch, fn, card, errs)
+    torch.cuda.empty_cache()
+    log("== 16. data parallelism over torch.distributed (world size "
+        f"{1 if torch.cuda.device_count() < 2 else '1 and 2'})")
+    dp = phase_data_parallel(torch, fn, card, mmformer_step_ms, sweep_labels)
+    del sweep_labels
+    for k in KERNELS:
+        by_path[k]["single_mask:mmformer"] = single[k]
+        by_path[k]["val_15_masks:mmformer"] = val[k]
+        by_path[k]["train_steps_dp:mmformer"] = dp["train"][k]
+        by_path[k]["sweep_dp:mmformer"] = dp["sweep"][k]
     for k in KERNELS:
         log(f"  {k} launches by path: {by_path[k]}")
 

@@ -2,6 +2,8 @@
 `passion_tpu/config.py` has them) backed by dataclasses, plus `--device`.
 `EvalConfig` / `parse_config` for `python -m passion_tpu_torch.eval`,
 `TrainConfig` / `parse_train_config` for `python -m passion_tpu_torch.train`.
+The reference's config helpers (`str2bool`, `AttrDict`, `parse_value`,
+`load_yaml_config`) are copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -9,6 +11,86 @@ from __future__ import annotations
 import argparse
 import os
 from dataclasses import dataclass
+
+DATA_PARALLEL_HELP = ("data-parallel ranks, one process per card: 0 = one "
+                      "device, -1 = every visible card, N = the first N "
+                      "(with --device cpu: N gloo ranks)")
+
+
+def str2bool(v: str) -> bool:
+    """Boolean flag parser (utils/str2bool.py:1-8): the same accepted
+    tokens, ValueError on anything else."""
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise ValueError("Unsupported value encountered.")
+
+
+class AttrDict(dict):
+    """Attribute-style nested config dict (utils/parser.py:18-61): reading a
+    missing attribute creates a nested AttrDict; `merge` deep-merges
+    another mapping."""
+
+    def __getattr__(self, name):
+        if name in self.__dict__:
+            return self.__dict__[name]
+        if name in self:
+            return self[name]
+        if name.startswith("__"):
+            raise AttributeError(name)
+        self[name] = AttrDict()
+        return self[name]
+
+    def __setattr__(self, name, value):
+        if name in self.__dict__:
+            self.__dict__[name] = value
+        else:
+            self[name] = value
+
+    def merge(self, other) -> None:
+        for k, v in other.items():
+            if k in self and isinstance(v, dict) and isinstance(self[k],
+                                                               dict):
+                AttrDict.merge(self[k], v)
+            else:
+                self[k] = AttrDict.cast(v) if isinstance(v, dict) else v
+
+    @staticmethod
+    def cast(d):
+        if not isinstance(d, dict):
+            return d
+        return AttrDict({k: AttrDict.cast(v) for k, v in d.items()})
+
+
+def parse_value(d):
+    """Recursive literal coercion (utils/parser.py:70-82): strings that
+    parse as Python literals or fractions become values, dicts become
+    AttrDicts. `ast.literal_eval`, never eval."""
+    from ast import literal_eval
+    from fractions import Fraction
+
+    if isinstance(d, dict):
+        return AttrDict({k: parse_value(v) for k, v in d.items()})
+    if isinstance(d, str):
+        try:
+            return literal_eval(d)
+        except (ValueError, SyntaxError):
+            try:
+                return float(Fraction(d))
+            except (ValueError, ZeroDivisionError):
+                return d
+    return d
+
+
+def load_yaml_config(fname: str) -> AttrDict:
+    """YAML file -> AttrDict with literal coercion (utils/parser.py:84-87),
+    through `yaml.safe_load`. PyYAML is imported here only: the package
+    does not need it otherwise."""
+    import yaml
+
+    with open(fname) as f:
+        return parse_value(yaml.safe_load(f))
 
 # the width overrides each backbone takes (M2FTrans's token width is
 # 16 * basic_dims, so it has no trans_dim; RFNet has no transformer)
@@ -53,6 +135,7 @@ class EvalConfig:
     savepath: str = "outputs/run"
     resume: str | None = None
     window_batch: int = 0  # 0 = auto (per-case chunk sizing)
+    data_parallel: int = 0  # ranks: 0 one device, -1 every card, N first N
     seed: int = 1037
     device: str = "cuda"
 
@@ -86,6 +169,8 @@ def parse_config(argv=None) -> EvalConfig:
                    help="port checkpoint (torch.save of the state_dict) or "
                         ".npz of the JAX package's flattened params")
     p.add_argument("--window_batch", default=d.window_batch, type=int)
+    p.add_argument("--data_parallel", default=d.data_parallel, type=int,
+                   help=DATA_PARALLEL_HELP)
     p.add_argument("--seed", default=d.seed, type=int)
     p.add_argument("--device", default=d.device, choices=("cuda", "cpu"))
     return EvalConfig(**vars(p.parse_args(argv)))
@@ -126,7 +211,7 @@ class TrainConfig:
     mlp_dim: int | None = None
     heads: int | None = None
     depth: int | None = None
-    data_parallel: int = 0  # the mesh path is not ported: must stay 0
+    data_parallel: int = 0  # ranks: 0 one device, -1 every card, N first N
     num_cls: int = 4
     window_batch: int = 0  # 0 = auto
     num_workers: int = 8
@@ -190,7 +275,8 @@ def parse_train_config(argv=None) -> TrainConfig:
                    help="dataset root (default: ../datasets next to package)")
     p.add_argument("--patch_size", default=d.patch_size, type=int)
     _add_width_args(p)
-    p.add_argument("--data_parallel", default=d.data_parallel, type=int)
+    p.add_argument("--data_parallel", default=d.data_parallel, type=int,
+                   help=DATA_PARALLEL_HELP)
     p.add_argument("--window_batch", default=d.window_batch, type=int)
     p.add_argument("--num_workers", default=d.num_workers, type=int)
     p.add_argument("--iters_per_epoch", default=None, type=int)

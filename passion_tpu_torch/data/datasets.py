@@ -1,13 +1,14 @@
 """BraTS npy datasets (counterpart of `passion_tpu/data/datasets.py`):
-`BratsTest` for the sweep, `BratsTrainIDT` and `BratsTrainPDT` for training.
+`BratsTest` for the sweep, `BratsTrainIDT` and `BratsTrainPDT` for
+training, `BratsVal` for validation.
 
-Volumes are stored (H, W, Z, 4) float32 and segmentations (H, W, Z). The
-test set hands them on in that layout (the sweep engine moves channels
-first on the card); the training sets run the reference's augmentation
-pipeline (data/transforms.py) in that layout and return channels-first
-x (4, H, W, Z) and one-hot target (num_cls, H, W, Z). Training items draw
-their randomness from an explicit `numpy.random.Generator`, in the JAX
-package's order, so a given generator gives the same item on both sides.
+Volumes are stored (H, W, Z, 4) float32 and segmentations (H, W, Z). Every
+set runs its transform pipeline (data/transforms.py) in that layout. The
+test set hands the volume on in it (the sweep engine moves channels first
+on the card); the training and validation sets return channels-first
+x (4, H, W, Z) and one-hot target (num_cls, H, W, Z). Items draw their
+randomness from an explicit `numpy.random.Generator`, in the JAX package's
+order, so a given generator gives the same item on both sides.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import os
 import numpy as np
 
 from passion_tpu_torch.data import transforms as T
-from passion_tpu_torch.masks import MASK_ARRAY
+from passion_tpu_torch.masks import MASK_ARRAY, MASK_VALID_ARRAY
 
 TEST_TRANSFORMS = "Compose([NumpyType((np.float32, np.int64)),])"
 MODAL_INDEX = {"flair": [0], "t1ce": [1], "t1": [2], "t2": [3],
@@ -33,34 +34,50 @@ def _read_list(path):
     return names
 
 
-class BratsTest:
-    """Full uncropped volumes + integer labels (datasets_nii.py:165-208).
+def _one_hot(y, num_cls):
+    return np.eye(num_cls, dtype=np.float32)[y.astype(np.int64)]
 
-    `transforms` is "" (no cast) or the reference's default test pipeline
-    `TEST_TRANSFORMS` (x float32, labels int64)."""
 
-    def __init__(self, transforms=TEST_TRANSFORMS, root=None, modal="all",
-                 test_file="test.txt"):
-        if transforms not in ("", TEST_TRANSFORMS):
-            raise NotImplementedError(
-                f"test transform {transforms!r} is not ported; only "
-                f"{TEST_TRANSFORMS!r} is")
-        self.cast = transforms == TEST_TRANSFORMS
+class _BratsBase:
+    """Loading and the transform pipeline shared by every set."""
+
+    def __init__(self, root, names, transforms, modal):
         self.root = root
-        self.names = _read_list(os.path.join(root, test_file))
+        self.names = names
+        self.transform = (T.from_string(transforms or "")
+                          if isinstance(transforms, str) or transforms is None
+                          else transforms)
         self.modal_ind = np.array(MODAL_INDEX[modal])
 
     def __len__(self):
         return len(self.names)
 
-    def get(self, index):
+    def _load(self, index):
+        """((1, H, W, Z, 4) float32 volume, (1, H, W, Z) segmentation), the
+        pipeline's input."""
         name = self.names[index]
         x = np.load(os.path.join(self.root, "vol", name + "_vol.npy"))
         y = np.load(os.path.join(self.root, "seg", name + "_seg.npy"))
-        y = y.astype(np.uint8)
-        if self.cast:
-            x, y = x.astype(np.float32), y.astype(np.int64)
-        return dict(x=x[..., self.modal_ind], target=y, name=name)
+        return x[None].astype(np.float32), y[None]
+
+
+class BratsTest(_BratsBase):
+    """Full uncropped volumes + integer labels (datasets_nii.py:165-208).
+    `get` runs the pipeline with `default_rng(0)` unless given a
+    generator, as the JAX package's `BratsTest` does; labels enter it as
+    uint8."""
+
+    def __init__(self, transforms=TEST_TRANSFORMS, root=None, modal="all",
+                 test_file="test.txt"):
+        super().__init__(root, _read_list(os.path.join(root, test_file)),
+                         transforms, modal)
+
+    def get(self, index, rng=None):
+        x, y = self._load(index)
+        x, y = self.transform([x, y.astype(np.uint8)],
+                              rng or np.random.default_rng(0))
+        return dict(x=x[0][..., self.modal_ind], target=y[0],
+                    name=self.names[index])
 
 
 class CaseLoader:
@@ -79,31 +96,16 @@ class CaseLoader:
                        name=[item["name"]])
 
 
-def _one_hot(y, num_cls):
-    return np.eye(num_cls, dtype=np.float32)[y.astype(np.int64)]
-
-
-class _BratsTrain:
-    """Shared loading and augmentation of the training datasets."""
+class _BratsTrain(_BratsBase):
+    """Training-set items: channels-first x and a one-hot target."""
 
     def __init__(self, root, names, transforms, modal, num_cls):
-        self.root = root
-        self.names = names
-        self.transform = (T.from_string(transforms or "")
-                          if isinstance(transforms, str) or transforms is None
-                          else transforms)
-        self.modal_ind = np.array(MODAL_INDEX[modal])
+        super().__init__(root, names, transforms, modal)
         self.num_cls = num_cls
-
-    def __len__(self):
-        return len(self.names)
 
     def _augmented(self, index, rng):
         """(x (4, H, W, Z) float32, target (num_cls, H, W, Z) one-hot)."""
-        name = self.names[index]
-        x = np.load(os.path.join(self.root, "vol", name + "_vol.npy"))
-        y = np.load(os.path.join(self.root, "seg", name + "_seg.npy"))
-        x, y = self.transform([x[None].astype(np.float32), y[None]], rng)
+        x, y = self.transform(list(self._load(index)), rng)
         x = x[0][..., self.modal_ind]
         yo = _one_hot(y[0], self.num_cls)
         return (np.ascontiguousarray(np.moveaxis(x, -1, 0)),
@@ -159,4 +161,21 @@ class BratsTrainIDT(_BratsTrain):
             raise ValueError(f"bad mask_type {self.mask_type!r}")
         x, target = self._augmented(index, rng)
         return dict(x=x, target=target, mask=MASK_ARRAY[mask_idx].copy(),
+                    name=self.names[index])
+
+
+class BratsVal(_BratsTrain):
+    """Validation crops, each under one mask of the fixed 4-mask subset
+    `MASK_VALID_ARRAY` drawn after the augmentation
+    (datasets_nii.py:211-266)."""
+
+    def __init__(self, transforms="", root=None, modal="all", num_cls=4,
+                 train_file="val.txt"):
+        super().__init__(root, _read_list(os.path.join(root, train_file)),
+                         transforms, modal, num_cls)
+
+    def get(self, index, rng):
+        x, target = self._augmented(index, rng)
+        mask = MASK_VALID_ARRAY[int(rng.integers(0, 4))]
+        return dict(x=x, target=target, mask=mask.copy(),
                     name=self.names[index])

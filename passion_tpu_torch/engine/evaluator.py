@@ -1,14 +1,21 @@
-"""The 15-combination evaluation sweep and its CSV (counterpart of
-`passion_tpu/engine/evaluator.py:100-229`).
+"""Evaluation: per-mask scoring and the 15-combination sweep, with their
+CSVs (counterpart of `passion_tpu/engine/evaluator.py`).
 
-For each test case: one `SlidingWindowSweep.sweep_labels` over every mask
-(cases outer, masks inner: each volume is staged on the card once), then
-Dice WT/TC/ET(+postpro) and HD95 per (case, mask). HD95 (four full-volume
-distance transforms per case and mask) runs in a thread pool beside the
-next case's device work. The CSV keeps the reference's layout byte for
-byte: masks in reversed canonical order, a mask-name row before each
-mask's case rows, and the merged 'ET HD95ETPro HD95' header cell of the
-reference's string-concatenation quirk (train.py:587).
+`test_dice_hd95_softmax` scores one modality combination over the test set
+(utils/predict.py:144-252): per case the engine's argmax labels, Dice
+WT/TC/ET(+postpro) and HD95, one CSV row per case.
+
+`run_test_sweep` scores all 15: for each test case one
+`SlidingWindowSweep.sweep_labels` over every mask (cases outer, masks
+inner: each volume is staged on the card once), or one `infer_labels` per
+mask for an engine without the sweep, then Dice and HD95 per (case, mask).
+HD95 (four full-volume distance transforms per case and mask) runs in a
+thread pool beside the next case's device work. The CSV keeps the
+reference's layout byte for byte: masks in reversed canonical order, a
+mask-name row before each mask's case rows, and the merged 'ET HD95ETPro
+HD95' header cell of the reference's string-concatenation quirk
+(train.py:587). With a sharded sweep every rank runs the sweep and only
+the engine's main rank scores and writes.
 """
 
 from __future__ import annotations
@@ -34,18 +41,71 @@ def _csv_append(csv_name, row):
         csv.writer(f).writerow(row)
 
 
+def test_dice_hd95_softmax(test_loader, engine, feature_mask,
+                           mask_name=None, csv_name=None):
+    """Score one modality combination over the test set (JAX
+    evaluator.py:35-97; predict.py:144-252).
+
+    test_loader: batches {'x': (B, H, W, Z, 4), 'target': (B, H, W, Z) int
+    labels, 'name': [B names]}; engine: a sliding-window engine with
+    `prepare` and `infer_labels`; feature_mask: the (4,) bool mask of every
+    case (predict.py:174-179). Appends one CSV row per case (Dice WT, TC,
+    ET, ETPro, then their HD95) and returns (avg_dice (4,), avg_hd95
+    (4,))."""
+    vals_dice, vals_hd95 = AverageMeter(), AverageMeter()
+    n_batches = len(test_loader) if hasattr(test_loader, "__len__") else "?"
+    mask = np.asarray(feature_mask, bool)
+    if mask_name:
+        logging.info("mask %s", mask_name)
+    for i, batch in enumerate(test_loader):
+        x, target = np.asarray(batch["x"]), np.asarray(batch["target"])
+        names = batch["name"]
+        pred = np.stack([engine.infer_labels(engine.prepare(x[b]), mask)
+                         for b in range(x.shape[0])])
+        _, scores_eval = dice_class4(pred, target)
+        scores_eval = np.asarray(scores_eval)
+        # the reference takes HD95 of batch element 0 only (predict.py:222)
+        # at its test batch size of 1; every element here
+        for k, name in enumerate(names):
+            hd = np.array(cal_hd95(pred[k], target[k]))
+            vals_dice.update(scores_eval[k])
+            vals_hd95.update(hd)
+            logging.info(
+                "Subject %d/%s, %d/%d%20s, DSC: %s, HD95: %s", i + 1,
+                n_batches, k + 1, len(names), name,
+                ", ".join(f"{c}: {v:.4f}"
+                          for c, v in zip(CLASS_EVALUATION, scores_eval[k])),
+                ", ".join(f"{c}: {v:.4f}"
+                          for c, v in zip(CLASS_EVALUATION, hd)))
+            _csv_append(csv_name, list(scores_eval[k][:4]) + list(hd[:4]))
+    logging.info("Average scores: DSC: %s, HD95: %s",
+                 ", ".join(f"{c}: {v:.4f}"
+                           for c, v in zip(CLASS_EVALUATION, vals_dice.avg)),
+                 ", ".join(f"{c}: {v:.4f}"
+                           for c, v in zip(CLASS_EVALUATION, vals_hd95.avg)))
+    return vals_dice.avg, vals_hd95.avg
+
+
 def run_test_sweep(test_loader, engine, csv_name=None, masks=None,
                    mask_names=None):
-    """Score every mask over the test set with a `SlidingWindowSweep`.
+    """Score every mask over the test set with a `SlidingWindowSweep`, or
+    with an engine that has only `infer_labels` (one pass per mask).
 
     test_loader: iterable of batches {'x': (B, H, W, Z, 4), 'target':
     (B, H, W, Z) int labels, 'name': [B names]}. Returns (avg_dice (4,),
-    avg_hd95 (4,), per_mask {name: {'dice', 'hd95'}}).
+    avg_hd95 (4,), per_mask {name: {'dice', 'hd95'}}), or (None, None,
+    None) on a rank of a sharded sweep other than the main one, which only
+    takes its part of the sweep.
     """
     masks = MASK_ARRAY if masks is None else masks
     mask_names = MASK_NAMES if mask_names is None else mask_names
     order = list(zip(list(masks)[::-1], list(mask_names)[::-1]))
     sweep_masks = [np.asarray(m, bool) for m, _ in order]
+    if not getattr(engine, "is_main", True):
+        for batch in test_loader:
+            for xk in np.asarray(batch["x"]):
+                engine.sweep_labels(engine.prepare(xk), sweep_masks)
+        return None, None, None
     rows = {name: [] for _, name in order}
     scores = {name: (AverageMeter(), AverageMeter()) for _, name in order}
     n_batches = len(test_loader) if hasattr(test_loader, "__len__") else "?"
@@ -56,8 +116,12 @@ def run_test_sweep(test_loader, engine, csv_name=None, masks=None,
             x = np.asarray(batch["x"])
             target = np.asarray(batch["target"])
             for k, name in enumerate(batch["name"]):
-                labels = engine.sweep_labels(engine.prepare(x[k]),
-                                             sweep_masks)
+                prepared = engine.prepare(x[k])
+                if hasattr(engine, "sweep_labels"):
+                    labels = engine.sweep_labels(prepared, sweep_masks)
+                else:
+                    labels = [engine.infer_labels(prepared, m)
+                              for m in sweep_masks]
                 for (_, mname), lab in zip(order, labels):
                     _, ev = dice_class4(lab[None], target[k][None])
                     pending.append((mname, ev[0], pool.submit(

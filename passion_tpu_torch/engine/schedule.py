@@ -3,7 +3,8 @@
 
 `lr_at_epoch` gives the four epoch-indexed modes of the reference
 `LR_Scheduler` (utils/lr_scheduler.py:8-43), including its `round(x, 8)`.
-Training uses 'poly' (power 0.9).
+Training uses 'poly' (power 0.9). `get_temperature` is the reference's
+unused temperature schedule.
 
 `AdamWAMSGrad` is the JAX package's optimizer, `optax.scale_by_amsgrad ->
 add_decayed_weights -> scale_by_learning_rate` (schedule.py:64-82), update
@@ -66,6 +67,13 @@ def lr_at_epoch(epoch: int, base_lr: float, num_epochs: int,
     else:
         raise ValueError(f"unknown LR mode {mode!r}")
     return round(float(lr), 8)
+
+
+def get_temperature(epoch: int) -> int:
+    """Linear 30 -> 1 temperature decay over the first 30 epochs
+    (utils/lr_scheduler.py:45-49; the reference's drivers pass the
+    constant `--temp` instead)."""
+    return 31 - (epoch + 1) if epoch <= 29 else 1
 
 
 def _bias_correction(decay: float, count: int) -> float:

@@ -31,9 +31,19 @@ iteration. The step writes that NaN explicitly with `torch.where`. Padded
 rows (valid = 0) are dropped with `torch.where` too, never a multiply,
 which would turn a padded row's NaN into a NaN sum.
 
-Not in this module yet: validation (`use_valid`, the JAX package's
-`make_val_step` / `run_validation`) and the data-parallel mesh; `fit`
-raises NotImplementedError for both.
+Validation (`make_val_step`, `run_validation`, `fit` with `use_valid`)
+scores every validation batch under all 15 masks and keeps `model_best.pt`.
+
+Data parallelism (`world`, parallel/world.py) computes what the JAX
+package's mesh computes: the gradient of the sum of per-sample losses over
+one global batch. Each rank runs its rows of the global batch, padded to a
+multiple of the world size with valid = 0 rows. The preference gate is a
+property of the global batch, so rp_iter is summed over the ranks before
+rp_mask = rp_iter > 0 (a NaN row on one rank closes the gate on all). The
+gradients are summed over the ranks (not averaged), then every rank makes
+the same update; the metrics are summed once per step, as one packed
+tensor. Dropout draws from a generator per rank seeded with seed + rank,
+so its masks cannot match the single-process run's.
 """
 
 from __future__ import annotations
@@ -51,7 +61,9 @@ from passion_tpu_torch import losses, resolve_device
 from passion_tpu_torch.engine import checkpoint as ckpt
 from passion_tpu_torch.engine.schedule import (lr_at_epoch, make_optimizer,
                                                set_learning_rate)
+from passion_tpu_torch.masks import MASK_ARRAY, MASK_NAMES
 from passion_tpu_torch.models import init_model
+from passion_tpu_torch.parallel.world import all_reduce_grads
 
 NUM_MODALS = 4
 SCALARS = ("loss", "fuse_loss", "prm_loss", "sep_loss", "kl_loss",
@@ -70,10 +82,28 @@ class _TrainForward(nn.Module):
         return self.model.train_losses(*args, **kwargs)
 
 
+def _train_forward(model: nn.Module, compute_dtype: torch.dtype | None):
+    """`model.train_losses` on a `compute_dtype` copy of the float32 params
+    made inside the graph (as the JAX package's `cast`), so gradients land
+    in float32 on the master params; `None` runs float32."""
+    wrapped = _TrainForward(model)
+
+    def forward(x, *args, **kwargs):
+        if compute_dtype is None:
+            return model.train_losses(x, *args, **kwargs)
+        cast = {f"model.{k}": v.to(compute_dtype)
+                for k, v in model.named_parameters()}
+        return functional_call(wrapped, cast,
+                               (x.to(compute_dtype),) + args, kwargs)
+
+    return forward
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     use_passion: bool, num_cls: int = 4,
                     with_dropout: bool = False,
-                    compute_dtype: torch.dtype | None = torch.bfloat16):
+                    compute_dtype: torch.dtype | None = torch.bfloat16,
+                    world=None):
     """Build the train step (train_loop.py:58-180).
 
     Returns step(batch, imb_beta, modal_weight, temp, generator=None,
@@ -88,19 +118,19 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     copy of the float32 params made inside the graph (as the JAX package's
     `cast`), so the gradients land in float32 on the master params; every
     loss upcasts to float32. `compute_dtype=None` gives a float32 step.
+
+    `world` (parallel.world.World): the batch holds this rank's rows of the
+    global batch; rp_iter, the gradients and the metrics are summed over
+    the ranks (module docstring), so every rank returns the global metrics
+    and makes the same update.
     """
     idt = model.mask_type != "pdt"
-    wrapped = _TrainForward(model)
+    train_forward = _train_forward(model, compute_dtype)
+    params = list(model.parameters())
 
     def forward(x, mask, target, temp, generator):
-        args = (x, mask, target, temp, use_passion)
-        kwargs = {"generator": generator if with_dropout else None}
-        if compute_dtype is None:
-            return model.train_losses(*args, **kwargs)
-        cast = {f"model.{k}": v.to(compute_dtype)
-                for k, v in model.named_parameters()}
-        return functional_call(wrapped, cast,
-                               (x.to(compute_dtype),) + args[1:], kwargs)
+        return train_forward(x, mask, target, temp, use_passion,
+                             generator=generator if with_dropout else None)
 
     def step(batch, imb_beta, modal_weight, temp, generator=None,
              warmup: bool = False) -> dict:
@@ -138,6 +168,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         rp_rows = torch.where((dist_avg == 0.0)[:, None], float("nan"),
                               rp_rows)
         rp_iter = drop_padded(rp_rows).sum(dim=0)
+        if world is not None:  # the gate belongs to the global batch
+            world.all_reduce_(rp_iter)
         rp_mask = (rp_iter > 0).to(torch.float32)
 
         w = modal_weight if idt else torch.ones_like(modal_weight)
@@ -158,14 +190,109 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             loss = sep_loss if warmup else fuse_loss + sep_loss + prm_loss
 
         loss.backward()
+        if world is not None:
+            all_reduce_grads(params, world)
         optimizer.step()
         metrics = dict(loss=loss, fuse_loss=fuse_loss, prm_loss=prm_loss,
                        sep_loss=sep_loss, kl_loss=kl_loss,
                        proto_loss=proto_loss, sep_m=sep_m, kl_m=kl_m,
-                       proto_m=proto_m, dist_m=dist_m, rp_iter=rp_iter)
-        return {k: v.detach() for k, v in metrics.items()}
+                       proto_m=proto_m, dist_m=dist_m)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if world is not None:  # each term is linear in the rows' losses
+            metrics = _sum_metrics(metrics, world)
+        metrics["rp_iter"] = rp_iter.detach()
+        return metrics
 
     return step
+
+
+def _sum_metrics(metrics: dict, world) -> dict:
+    """Every metric summed over the ranks in one all-reduce."""
+    names = list(metrics)
+    packed = world.all_reduce_(torch.cat([metrics[k].reshape(-1).float()
+                                          for k in names]))
+    out, off = {}, 0
+    for k in names:
+        n = metrics[k].numel()
+        out[k] = packed[off:off + n].reshape(metrics[k].shape)
+        off += n
+    return out
+
+
+def make_val_step(model: nn.Module, num_cls: int = 4,
+                  compute_dtype: torch.dtype | None = torch.bfloat16):
+    """Validation scoring step (train_loop.py:183-219): the training
+    forward without PASSION and without dropout, under `torch.no_grad`,
+    on the same `compute_dtype` copy of the params as the train step.
+
+    Returns val_step(x, mask, target, temp) -> the batch mean of the
+    per-sample fuse_loss + sum_k sep[:, k] + prm, a float32 scalar tensor
+    on the device (read back by `run_validation`). The JAX package's
+    rebuild of the reference's disabled `--use_valid` loop: the score is a
+    relative model-selection signal."""
+    train_forward = _train_forward(model, compute_dtype)
+
+    @torch.no_grad()
+    def val_step(x, mask, target, temp):
+        out = train_forward(x, mask, target, float(temp), False)
+        fuse = losses.fuse_loss_bs(out["fuse_pred"], target, num_cls)
+        loss_b = (fuse.float()[:, 0] + out["sep_loss"].float().sum(dim=1)
+                  + out["prm_loss"].float()[:, 0])
+        return loss_b.mean()
+
+    return val_step
+
+
+VAL_RING = 4  # validation batches in flight at most
+
+
+def _losses_to_host(losses_dev: torch.Tensor) -> np.ndarray:
+    """A batch's 15 validation losses, read back (waits for the card)."""
+    return losses_dev.cpu().numpy().astype(np.float64)
+
+
+def run_validation(val_step, model: nn.Module, val_loader, temp,
+                   iters: int | None = None, world=None) -> np.ndarray:
+    """One validation sweep (train_loop.py:222-265): every batch under each
+    of the 15 masks of `MASK_ARRAY` (not the dataset's own mask). Returns
+    scores (15,) float64 with scores[j] the accumulated negative loss of
+    mask j (higher is better), the reference's
+    `score_modality[j] -= loss.item()`.
+
+    The 15 losses of a batch are queued without reading any back; they are
+    read as one tensor before batch k + VAL_RING is staged, so the card
+    never waits on the host between masks and at most VAL_RING batches
+    are on the card. With `world`, rank r scores batches r, r + size, ...
+    of the first `iters` and the scores are summed over the ranks, so every
+    rank gets the same scores."""
+    device = next(model.parameters()).device
+    n = iters or len(val_loader)
+    scores = np.zeros((len(MASK_ARRAY),), np.float64)
+    masks = torch.as_tensor(MASK_ARRAY, device=device)
+    ring: list[torch.Tensor] = []
+
+    def drain_one():
+        scores[:] -= _losses_to_host(ring.pop(0))
+
+    for i, batch in enumerate(val_loader):
+        if i >= n:
+            break
+        if world is not None and i % world.size != world.rank:
+            continue
+        x = torch.from_numpy(np.asarray(batch["x"], np.float32)).to(device)
+        target = torch.from_numpy(np.asarray(batch["target"],
+                                             np.float32)).to(device)
+        b = x.shape[0]
+        ring.append(torch.stack([val_step(x, m.expand(b, m.shape[0]),
+                                          target, temp) for m in masks]))
+        if len(ring) >= VAL_RING:
+            drain_one()
+    while ring:
+        drain_one()
+    if world is not None:
+        total = torch.from_numpy(scores).to(world.device)
+        scores = world.all_reduce_(total).cpu().numpy()
+    return scores
 
 
 def update_imb_beta(imb_beta, eta, epoch_dist_m, epoch, warmup_epochs):
@@ -184,11 +311,16 @@ def update_imb_beta(imb_beta, eta, epoch_dist_m, epoch, warmup_epochs):
     return beta, eta, rp_epoch
 
 
-def _to_device(batch: dict, bp: int, device: torch.device) -> dict:
+def _to_device(batch: dict, bp: int, device: torch.device,
+               world=None) -> dict:
     """Host batch -> device tensors, ragged batches padded to `bp` rows by
     repeating sample 0 with valid = 0 (so the step keeps one shape and the
-    padding counts in no loss)."""
+    padding counts in no loss). With `world`, `bp` is rounded up to a
+    multiple of the world size and only this rank's block of rows goes to
+    the device (train_loop.py:427-436)."""
     b = batch["x"].shape[0]
+    if world is not None:
+        bp = -(-bp // world.size) * world.size
     arrays = {"x": batch["x"].astype(np.float32),
               "target": batch["target"].astype(np.float32),
               "mask": np.asarray(batch["mask"], bool),
@@ -197,12 +329,16 @@ def _to_device(batch: dict, bp: int, device: torch.device) -> dict:
         idx = np.concatenate([np.arange(b), np.zeros((bp - b,), np.int64)])
         arrays = {k: v[idx] for k, v in arrays.items()}
         arrays["valid"][b:] = 0.0
+    if world is not None:
+        k = bp // world.size
+        arrays = {n: v[world.rank * k:(world.rank + 1) * k]
+                  for n, v in arrays.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in arrays.items()}
 
 
 def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
-        device="cuda"):
+        device="cuda", val_loader=None, world=None):
     """The PASSION epoch loop (train.py:177-373; JAX train_loop.py:285-505),
     bf16 over float32 master params, dropout on for mmFormer and M2FTrans
     (RFNet has none).
@@ -213,20 +349,22 @@ def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
       x and one-hot target).
     cfg: TrainConfig-like (lr, weight_decay, num_epochs, temp,
       region_fusion_start_epoch, use_passion, mask_type, savepath, seed,
-      resume, use_pretrain, batch_size, iters_per_epoch, use_valid,
-      data_parallel; the last two are not ported and must be off).
+      resume, use_pretrain, batch_size, iters_per_epoch, use_valid).
     modal_num: (4,) per-modality present counts of the imb-MR CSV.
+    val_loader: loader over `BratsVal`; with `cfg.use_valid` every epoch
+      ends with the 15-mask validation sweep, and `model_best.pt` is written
+      when an epoch beats the best score so far.
+    world: parallel.world.World to train data-parallel (the model on
+      `world.device`, which replaces `device`). Every rank iterates the
+      same loader (same seed, so the global sample order is the
+      single-process run's) and runs its block of rows; only rank 0 writes
+      checkpoints (pass `writer` on rank 0 only). Every rank initialises
+      the same params from the seed, or loads the same file on a resume.
 
     Returns (model, optimizer, history).
     """
-    if getattr(cfg, "data_parallel", 0):
-        raise NotImplementedError("--data_parallel (the mesh) is not ported "
-                                  "yet (ROADMAP.md queue A, slice 4)")
-    if getattr(cfg, "use_valid", False):
-        raise NotImplementedError("--use_valid (validation scoring and "
-                                  "model_best) is not ported yet (ROADMAP.md "
-                                  "queue A)")
-    device = resolve_device(device)
+    device = world.device if world is not None else resolve_device(device)
+    main = world is None or world.is_main
     init_model(model, cfg.seed).to(device)
     if cfg.resume and cfg.use_pretrain:
         ckpt.load_pretrained_params(cfg.resume, model)
@@ -243,8 +381,10 @@ def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
 
     with_dropout = type(model).__name__ != "RFNet"
     step = make_train_step(model, optimizer, cfg.use_passion, model.num_cls,
-                           with_dropout=with_dropout)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+                           with_dropout=with_dropout, world=world)
+    # one dropout stream per rank (module docstring)
+    generator = torch.Generator(device=device).manual_seed(
+        cfg.seed + (world.rank if world is not None else 0))
 
     iter_per_epoch = getattr(cfg, "iters_per_epoch", None) or len(
         train_loader)
@@ -261,6 +401,11 @@ def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
     imb_beta = np.ones((NUM_MODALS,), np.float32)
     eta = 0.01
     history = []
+    use_valid = bool(getattr(cfg, "use_valid", False)) and \
+        val_loader is not None
+    if use_valid:
+        val_step = make_val_step(model, model.num_cls)
+        best_score, best_epoch = None, start_epoch
     tag = "PASSION" if cfg.use_passion else "NO-PASSION"
     logging.info("#############%s-%s-Training############", tag,
                  cfg.mask_type.upper())
@@ -311,8 +456,8 @@ def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
                 break
             b = batch["x"].shape[0]
             bp = max(getattr(cfg, "batch_size", None) or b, b)
-            m = step(_to_device(batch, bp, device), beta_t, modal_weight_t,
-                     cfg.temp, generator, warmup)
+            m = step(_to_device(batch, bp, device, world), beta_t,
+                     modal_weight_t, cfg.temp, generator, warmup)
             pending.append((i, list(batch["name"]), m))
             drain(keep=2)
         drain(keep=0)
@@ -341,9 +486,37 @@ def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
 
         state = {"epoch": epoch, "model": model.state_dict(),
                  "optimizer": optimizer.state_dict()}
-        for path in ckpt.checkpoint_paths(cfg.savepath, epoch,
-                                          cfg.num_epochs):
-            ckpt.save_checkpoint(path, state)
+        if main:
+            for path in ckpt.checkpoint_paths(cfg.savepath, epoch,
+                                              cfg.num_epochs):
+                ckpt.save_checkpoint(path, state)
+
+        if use_valid:
+            # 15-mask validation sweep -> model_best (train.py:468-544)
+            b_val = time.time()
+            logging.info("#############validation############")
+            scores = run_validation(
+                val_step, model, val_loader, cfg.temp,
+                iters=getattr(cfg, "iters_per_epoch", None), world=world)
+            score_avg = float(np.mean(scores))
+            if best_score is None:
+                # the reference's quirk, kept: the first validated epoch
+                # sets best_score without writing model_best
+                # (train.py:524-526)
+                best_score, best_epoch = score_avg, epoch
+            elif score_avg > best_score:
+                best_score, best_epoch = score_avg, epoch
+                if main:
+                    ckpt.save_checkpoint(
+                        os.path.join(cfg.savepath, "model_best.pt"), state)
+            if writer:
+                for z, name in enumerate(MASK_NAMES):
+                    writer.add_scalar(name, scores[z], epoch + 1)
+                writer.add_scalar("score_average", score_avg, epoch + 1)
+            logging.info("epoch total score: %s", score_avg)
+            logging.info("best score: %s", best_score)
+            logging.info("best epoch: %d", best_epoch + 1)
+            logging.info("validate time per epoch: %s", time.time() - b_val)
 
         history.append(dict(epoch=epoch, **acc,
                             imb_beta=np.asarray(imb_beta).tolist()))

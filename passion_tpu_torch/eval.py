@@ -10,6 +10,8 @@ with Dice WT/TC/ET(+postpro) and HD95, writing per-case CSV rows to
 `--resume` takes a port checkpoint (`torch.save(model.state_dict())`, or
 a training checkpoint of `python -m passion_tpu_torch.train`) or an .npz
 of the JAX package's flattened params (README, "PyTorch/CUDA port").
+`--data_parallel N` splits each case's windows over N ranks, one process
+per card (parallel/world.py; rank 0 writes the CSV).
 """
 
 from __future__ import annotations
@@ -23,19 +25,30 @@ from passion_tpu_torch.data.datasets import (TEST_TRANSFORMS, BratsTest,
                                              CaseLoader)
 from passion_tpu_torch.engine.checkpoint import load_weights
 from passion_tpu_torch.engine.evaluator import run_test_sweep
-from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
+from passion_tpu_torch.engine.sliding_window import make_engine
 from passion_tpu_torch.logging_utils import set_seed, setup
 from passion_tpu_torch.models import get_model
+from passion_tpu_torch.parallel.world import launch, world_size_for
 
 
 def main(argv=None):
     cfg = parse_config(argv)
-    setup(cfg, "eval")
-    set_seed(cfg.seed)
-    logging.info(str(cfg))
     if not cfg.resume:  # fail before the model is built
         raise SystemExit("--resume checkpoint path is required")
-    device = resolve_device(cfg.device)
+    ranks = world_size_for(cfg.data_parallel, cfg.device)
+    if ranks:
+        launch(eval_rank, ranks, cfg.device, args=(cfg,))
+        return None
+    return eval_rank(None, cfg)
+
+
+def eval_rank(world, cfg):
+    """One rank's evaluation (`world` None: the single-device run)."""
+    setup(cfg, "eval", rank=world.rank if world is not None else 0)
+    set_seed(cfg.seed)
+    logging.info(str(cfg))
+    device = world.device if world is not None else resolve_device(
+        cfg.device)
 
     model = get_model(cfg.model, num_cls=cfg.num_cls, mask_type=cfg.mask_type,
                       patch_size=cfg.patch_size, **cfg.model_kwargs)
@@ -44,8 +57,9 @@ def main(argv=None):
 
     test_set = BratsTest(TEST_TRANSFORMS, root=cfg.dataset_path,
                          test_file="test.txt")
-    engine = SlidingWindowSweep(model, cfg.num_cls, cfg.patch_size,
-                                window_batch=cfg.window_batch, device=device)
+    engine = make_engine(model, cfg.num_cls, cfg.patch_size,
+                         window_batch=cfg.window_batch, device=device,
+                         world=world)
     csv_name = os.path.join(cfg.savepath, f"{cfg.model}.csv")
     avg_dice, avg_hd95, _ = run_test_sweep(CaseLoader(test_set), engine,
                                            csv_name=csv_name)

@@ -40,6 +40,18 @@ MASK_NAMES = (
     "flairt1cet1t2",
 )
 
+# the fixed validation subset (datasets_nii.py:31-34) that `BratsVal` draws
+# its item's mask from
+MASK_VALID_ARRAY = np.array(
+    [
+        [False, False, True, False],
+        [False, True, True, False],
+        [True, True, False, True],
+        [True, True, True, True],
+    ],
+    dtype=bool,
+)
+
 
 def mask_id_of(mask) -> int:
     """Return the canonical mask_id (row index in MASK_ARRAY) of a mask."""

@@ -137,6 +137,9 @@ def test_synthetic_cases_match_jax():
 
 
 def test_brats_test_reads_cases(dataset):
+    """The default cast, no pipeline, and a non-default pipeline (random
+    flips; with the default generator and with a given one) give the JAX
+    package's items."""
     ds = BratsTest(TEST_TRANSFORMS, root=dataset)
     jds = JaxBratsTest(TEST_TRANSFORMS, root=dataset)
     assert len(ds) == len(jds) == 2
@@ -145,5 +148,19 @@ def test_brats_test_reads_cases(dataset):
     for k in ("x", "target"):
         assert item[k].dtype == ref[k].dtype
         np.testing.assert_array_equal(item[k], ref[k])
-    with pytest.raises(NotImplementedError):
-        BratsTest("Compose([RandomFlip(0),])", root=dataset)
+    flips = "Compose([RandomFlip(0), NumpyType((np.float32, np.int64)),])"
+    for spec in ("", flips):
+        ds, jds = BratsTest(spec, root=dataset), JaxBratsTest(spec,
+                                                              root=dataset)
+        for rng in (None, 4):
+            for i in range(2):
+                item = ds.get(i, None if rng is None else
+                              np.random.default_rng(rng))
+                ref = jds.get(i, None if rng is None else
+                              np.random.default_rng(rng))
+                for k in ("x", "target"):
+                    assert item[k].dtype == ref[k].dtype
+                    np.testing.assert_array_equal(item[k], ref[k])
+    flipped = BratsTest(flips, root=dataset).get(0)["x"]
+    assert not np.array_equal(flipped, BratsTest(
+        TEST_TRANSFORMS, root=dataset).get(0)["x"])

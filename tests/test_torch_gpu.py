@@ -2,7 +2,8 @@
 (backward) against their plain PyTorch version, at the row shapes of all
 three backbones, the autograd Function's gradient against autograd of the
 plain forward, and the models' kernel path against their plain-norm path,
-for inference (mmFormer, RFNet, M2FTrans) and one train step (mmFormer). Marked
+for inference (mmFormer, RFNet, M2FTrans), the single-mask engine, the
+validation step and one train step (mmFormer). Marked
 `gpu`; each test decides inside itself whether a card is present and skips
 without one. This file imports torch and the port only (a GPU machine need
 not have JAX), so it runs there without tests/conftest.py, which imports
@@ -223,3 +224,64 @@ def test_train_step_kernel_path_matches_plain_norm(card, monkeypatch):
                                atol=1e-5)
     for (name, a), b in zip(net_k.named_parameters(), net_p.parameters()):
         torch.testing.assert_close(a, b, rtol=0, atol=5e-4, msg=name)
+
+
+def test_single_mask_engine_kernel_path_matches_plain_norm(card,
+                                                           monkeypatch):
+    """The single-mask engine (the whole `forward` per chunk) of a small
+    mmFormer in float32 on the card: K1 + K2 at every one of forward's
+    14 + 27 norm sites per chunk, probabilities against the plain norm's
+    (atol 1e-4), labels against the sweep engine's."""
+    from passion_tpu_torch.engine.sliding_window import (
+        SlidingWindowInference, SlidingWindowSweep)
+    from passion_tpu_torch.masks import MASK_ARRAY
+    from passion_tpu_torch.models import get_model, init_model
+
+    net = init_model(get_model("mmformer", patch_size=16, basic_dims=4,
+                               trans_dim=32, mlp_dim=64, heads=4), seed=0)
+    vol = np.random.default_rng(0).standard_normal((24, 24, 20, 4)).astype(
+        np.float32)
+    eng = SlidingWindowInference(net, 4, 16, window_batch=3,
+                                 compute_dtype=torch.float32)
+    prepared = eng.prepare(vol)
+    k1 = tfn.norm_stats.launches
+    got = eng.run(prepared, MASK_ARRAY[9])
+    assert tfn.norm_stats.launches - k1 == 3 * (14 + 27)  # 3 chunks
+    sweep = SlidingWindowSweep(net, 4, 16, window_batch=3,
+                               compute_dtype=torch.float32)
+    torch.testing.assert_close(
+        torch.from_numpy(eng.infer_labels(prepared, MASK_ARRAY[9])),
+        torch.from_numpy(sweep.sweep_labels(sweep.prepare(vol),
+                                            [MASK_ARRAY[9]])[0]))
+    monkeypatch.setattr(tfn, "instance_norm_lrelu",
+                        tfn.instance_norm_lrelu_plain)
+    torch.testing.assert_close(got, eng.run(prepared, MASK_ARRAY[9]),
+                               rtol=0, atol=1e-4)
+
+
+def test_val_step_kernel_path_matches_plain_norm(card, monkeypatch):
+    """The validation step of a small mmFormer in float32 on the card:
+    K1 + K2 at the training forward's 53 norm sites, no K3/K4, the loss
+    against the plain norm's (rtol 1e-4)."""
+    from passion_tpu_torch.engine import train_loop
+    from passion_tpu_torch.models import get_model, init_model
+
+    net = init_model(get_model("mmformer", patch_size=32, basic_dims=4,
+                               trans_dim=32, mlp_dim=64, heads=4),
+                     seed=0).to("cuda")
+    step = train_loop.make_val_step(net, 4, compute_dtype=None)
+    labels = torch.randint(0, 4, (2, 32, 32, 32), generator=card,
+                           device="cuda")
+    x = torch.randn((2, 4, 32, 32, 32), generator=card, device="cuda")
+    target = torch.nn.functional.one_hot(labels, 4).permute(
+        0, 4, 1, 2, 3).float().contiguous()
+    mask = torch.tensor([[1, 1, 1, 1], [1, 0, 1, 0]], dtype=torch.bool,
+                        device="cuda")
+    k1, k3 = tfn.norm_stats.launches, tfn.norm_bwd_stats.launches
+    got = step(x, mask, target, 4.0)
+    assert tfn.norm_stats.launches - k1 == 14 + 27 + 12
+    assert tfn.norm_bwd_stats.launches == k3
+    monkeypatch.setattr(tfn, "instance_norm_lrelu",
+                        tfn.instance_norm_lrelu_plain)
+    torch.testing.assert_close(got, step(x, mask, target, 4.0), rtol=1e-4,
+                               atol=1e-5)

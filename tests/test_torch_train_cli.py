@@ -1,8 +1,8 @@
 """`python -m passion_tpu_torch.train --device cpu` at a tiny size
 (patch 16, basic_dims 4, trans_dim 32, mlp_dim 64, heads 4) on synthetic
 cases: two epochs, the reference's checkpoint retention, `--resume`, the
-reference's TensorBoard tag set, the final 15-mask CSV, and the paths that
-are not ported yet refusing to run."""
+reference's TensorBoard tag set, the final 15-mask CSV, validation
+(`--use_valid`) and two gloo ranks (`--data_parallel 2`)."""
 
 import os
 import subprocess
@@ -16,6 +16,7 @@ from passion_tpu_torch import train as port_train
 from passion_tpu_torch.data.synth import make_synthetic_dataset
 from passion_tpu_torch.engine import checkpoint as ckpt
 from passion_tpu_torch.engine.tb_writer import read_scalars
+from passion_tpu_torch.masks import MASK_NAMES
 from passion_tpu_torch.models import get_model, init_model
 
 torch.set_num_threads(2)
@@ -127,7 +128,41 @@ def test_pretrained_merge_takes_matching_keys(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--use_valid", "--data_parallel"])
 def test_unported_paths_refuse(run, tmp_path, flag):
+    """The two paths the earlier slices refused now run: `--use_valid`,
+    and `--data_parallel 2 --device cpu` (two gloo ranks, with validation).
+    The TensorBoard tags gain the 15 mask names and `score_average`;
+    `model_best.pt` exists exactly when epoch 2 beat epoch 1's score (the
+    first validated epoch only sets the best score); only rank 0 writes:
+    one event file, one log line per iteration, one CSV."""
     data, _ = run
-    extra = [flag] if flag == "--use_valid" else [flag, "2"]
-    with pytest.raises(NotImplementedError):
-        port_train.main(_args(data, str(tmp_path / "o"), 1, *extra))
+    out = tmp_path / "o"
+    extra = ["--use_valid"]
+    if flag == "--data_parallel":
+        extra += ["--data_parallel", "2"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-m", "passion_tpu_torch.train",
+         *_args(data, str(out), 2, *extra)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (events,) = os.listdir(out / "summary")
+    rows = read_scalars(str(out / "summary" / events))
+    assert {t for _, t, _ in rows} == set(REF_TAGS) | set(MASK_NAMES) | {
+        "score_average"}
+    assert all(np.isfinite(v) for _, _, v in rows)
+    avg = dict((s, v) for s, t, v in rows if t == "score_average")
+    assert sorted(avg) == [1, 2]
+    files = set(os.listdir(out))
+    assert files - {"model_best.pt"} == {
+        "model_last.pt", "model_1.pt", "model_2.pt", "summary",
+        "idt_training.txt", "mmformer.csv"}
+    assert ("model_best.pt" in files) == (avg[2] > avg[1])
+    if avg[2] > avg[1]:
+        assert ckpt.load_checkpoint(str(out / "model_best.pt"))["epoch"] == 1
+    with open(out / "idt_training.txt") as f:
+        log = f.read()
+    assert log.count("Epoch 2/2, Iter 2/2, Loss") == 1
+    assert log.count("best epoch: ") == 2
+    with open(out / "mmformer.csv") as f:
+        assert len(f.read().strip().splitlines()) == 1 + 15 * 3
