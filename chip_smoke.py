@@ -70,10 +70,13 @@ Phases (each raises on failure; any failure exits non-zero):
      and `score_average` in TensorBoard, finite;
   16. data parallelism at world size 1 over NCCL (a process group of this
      process): the data-parallel float32 step against the one-process
-     step (loss rtol 1e-5, gradients at phase 7's tolerances), the bf16
-     data-parallel step's steps/s and launches beside phase 7's, the
-     sharded sweep's labels against phase 4's, and the train CLI with
-     `--data_parallel 1` (and 2 where two cards are visible).
+     step (loss rtol 1e-5, gradients at phase 7's tolerances); the bf16
+     one-process and data-parallel steps timed in turn (one, dp, dp, one,
+     four times over),
+     the data-parallel step's launches, and one traced step of each with
+     the kernels whose counts differ; the sharded sweep's labels against
+     phase 4's; and the train CLI with `--data_parallel 1` (and 2 where
+     two cards are visible).
 
 The kernels' JSON lists each kernel's launches on every path
 (`launches_by_path`: one sweep and the timed train steps of each
@@ -130,6 +133,7 @@ FORWARD_SITES = 14 + 27
 VAL_SITES = 14 + 27 + 12  # the training forward, one lane, no backward
 BACKBONES = ("mmformer", "rfnet", "m2ftrans")
 TRAIN_STEPS = 5  # timed full-width train steps (after 2 untimed ones)
+DP_TURNS = 4  # phase 16: one, dp, dp, one timings of TRAIN_STEPS, repeated
 KERNELS = ("K1", "K2", "K3", "K4")
 
 
@@ -411,20 +415,24 @@ def _kernel_times(prof) -> dict[str, tuple[float, int]]:
 
 def report_trace(prof, wall_ms: float, label: str, card: str,
                  top: int = TOP) -> dict:
-    """Log a trace's device busy share, the norm kernels' share and the
-    `top` kernels that take the most device time; return the totals."""
+    """Log a trace's device busy share, its kernel launches, the norm
+    kernels' share and the `top` kernels that take the most device time;
+    return the totals."""
     kernels = _kernel_times(prof)
     busy = sum(ms for ms, _ in kernels.values())
+    calls = sum(n for _, n in kernels.values())
     norm = sum(ms for k, (ms, _) in kernels.items()
                if any(s in k for s in NORM_KERNELS))
     log(f"  [{card}] {label}: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms "
-        f"(busy share {busy / wall_ms:.3f}); norm kernels {norm:.3f} ms "
-        f"({norm / max(busy, 1e-9):.3f} of kernel time)")
+        f"(busy share {busy / wall_ms:.3f}), {calls} kernel launches; norm "
+        f"kernels {norm:.3f} ms ({norm / max(busy, 1e-9):.3f} of kernel "
+        f"time)")
     for name, (ms, n) in sorted(kernels.items(),
                                 key=lambda kv: -kv[1][0])[:top]:
         log(f"    {ms:9.3f} ms {ms / max(busy, 1e-9):6.3f} x{n:<5d} "
             f"{name[:110]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, norm_ms=norm)
+    return dict(wall_ms=wall_ms, busy_ms=busy, norm_ms=norm, calls=calls,
+                kernels=kernels)
 
 
 def phase_profile(torch, engine, prepared, card, name):
@@ -705,9 +713,9 @@ def phase_train(torch, fn, card, name) -> dict:
                 step=one)
 
 
-def phase_train_profile(torch, run, card, name) -> dict:
-    """Phases 7b, 12b, 13b: torch.profiler over one full-width train
-    step."""
+def phase_train_profile(torch, run, card, name, top: int = 30) -> dict:
+    """Phases 7b, 12b, 13b (and 16): torch.profiler over one full-width
+    train step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -716,7 +724,7 @@ def phase_train_profile(torch, run, card, name) -> dict:
         run["step"]()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return report_trace(prof, wall_ms, f"{name} train step", card, top=30)
+    return report_trace(prof, wall_ms, f"{name} train step", card, top=top)
 
 
 def phase_train_float32(torch, fn, name):
@@ -1080,34 +1088,70 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
             f"global {math.sqrt(num / den):.3g}, worst {worst:.3g}")
         del res, a, b
 
-        # the bf16 data-parallel step as fit runs it (dropout on)
-        model, step = train_setup(torch, torch.bfloat16, True, "mmformer",
-                                  world)
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        for _ in range(2):
-            step(batch, ones, ones, 4.0, gen, False)
+        # the bf16 step as fit runs it (dropout on), one process and
+        # data-parallel side by side, timed in turn (one, dp, dp, one, ...)
+        # so that the host's drift over the run falls on both
+        runs = {}
+        for path in ("one", "dp"):
+            model, step = train_setup(torch, torch.bfloat16, True,
+                                      "mmformer",
+                                      world if path == "dp" else None)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+
+            def one(step=step, gen=gen):
+                return step(batch, ones, ones, 4.0, gen, False)
+
+            for _ in range(2):
+                one()
+            runs[path] = dict(step=one, model=model, ms=[])
         torch.cuda.synchronize()
-        reset_counts(fn)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses = [step(batch, ones, ones, 4.0, gen, False)["loss"]
-                  for _ in range(TRAIN_STEPS)]
-        end.record()
-        torch.cuda.synchronize()
-        out["train"] = counts(fn)
-        dp_ms = start.elapsed_time(end) / TRAIN_STEPS
+        for path in ("one", "dp", "dp", "one") * DP_TURNS:
+            count = path == "dp" and not runs["dp"]["ms"]
+            if count:
+                reset_counts(fn)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = [runs[path]["step"]()["loss"]
+                      for _ in range(TRAIN_STEPS)]
+            end.record()
+            torch.cuda.synchronize()
+            if count:
+                out["train"] = counts(fn)
+            runs[path]["ms"].append(start.elapsed_time(end) / TRAIN_STEPS)
+            if not all(math.isfinite(v.item()) for v in losses):
+                raise AssertionError(f"non-finite {path} loss")
         expect = TRAIN_STEPS * NORM_SITES["mmformer"]["train"]
         if out["train"] != {k: expect for k in KERNELS}:
             raise AssertionError(f"launches {out['train']}, expected "
                                  f"{expect} each")
-        if not all(math.isfinite(v.item()) for v in losses):
-            raise AssertionError("non-finite data-parallel loss")
-        log(f"  [{card}] bf16 data-parallel step: {dp_ms:.3f} ms per step -> "
-            f"{1e3 / dp_ms:.4f} steps/s (phase 7: {step_ms:.3f} ms -> "
-            f"{1e3 / step_ms:.4f}); launches over {TRAIN_STEPS} steps "
+        one_ms, dp_ms = runs["one"]["ms"], runs["dp"]["ms"]
+        log(f"  [{card}] bf16 step, {TRAIN_STEPS} steps per timing, in turn "
+            f"one/dp/dp/one x {DP_TURNS}: one process "
+            f"{[round(v, 3) for v in one_ms]} ms, median "
+            f"{float(np.median(one_ms)):.3f}; data-parallel "
+            f"{[round(v, 3) for v in dp_ms]} ms, median "
+            f"{float(np.median(dp_ms)):.3f} (phase 7: {step_ms:.3f} ms); "
+            f"launches over the first {TRAIN_STEPS} data-parallel steps "
             f"{out['train']}")
-        del model, step
+        traces = {path: phase_train_profile(torch, runs[path], card,
+                                            f"mmformer {path}", top=5)
+                  for path in ("one", "dp")}
+        one_k, dp_k = traces["one"]["kernels"], traces["dp"]["kernels"]
+        diff = {k: traces["dp"][k] - traces["one"][k]
+                for k in ("calls", "busy_ms", "wall_ms")}
+        log(f"  traced step, data-parallel minus one process: "
+            f"{diff['calls']} kernel launches, {diff['busy_ms']:.3f} ms of "
+            f"kernels, {diff['wall_ms']:.3f} ms of wall time; kernels whose "
+            f"count differs (launches, ms):")
+        for k in sorted(set(one_k) | set(dp_k)):
+            (t1, n1), (t2, n2) = one_k.get(k, (0.0, 0)), dp_k.get(k, (0.0, 0))
+            if n1 != n2:
+                log(f"    {n2 - n1:+5d} {t2 - t1:+9.3f} ms  {k[:100]}")
+        out["dp_ms"], out["one_ms"] = dp_ms, one_ms
+        out["traces"] = {p: {k: v for k, v in t.items() if k != "kernels"}
+                         for p, t in traces.items()}
+        del runs, traces
         torch.cuda.empty_cache()
 
         # the sharded sweep at world size 1 against phase 4's labels

@@ -108,8 +108,6 @@ class SlidingWindowInference:
         self.patch = patch
         self.window_batch = window_batch or None  # 0 (CLI) == None == auto
         self.compute_dtype = compute_dtype
-        self.world = None
-        self.is_main = True  # the rank that scores and writes
 
     def prepare(self, x) -> dict:
         """Stage one (H, W, Z, 4) volume on the device for repeated
@@ -121,12 +119,16 @@ class SlidingWindowInference:
         xpad = np.zeros(eff + (x.shape[3],), np.float32)
         xpad[:h, :w, :z] = x
         coords = window_coords(eff, self.patch)
-        shards = self.world.size if self.world is not None else 1
-        wb = self.window_batch or _auto_window_batch(len(coords), shards)[0]
+        wb = self.window_batch or _auto_window_batch(len(coords),
+                                                     self._n_shards())[0]
         vol = torch.from_numpy(xpad).to(self.device).permute(3, 0, 1, 2)
         return dict(vol=vol.to(self.compute_dtype).contiguous(),
                     coords=coords, window_batch=wb, shape=(h, w, z),
                     eff=eff)
+
+    def _n_shards(self) -> int:
+        """The ranks the automatic window batch splits the chunks over."""
+        return 1
 
     def _chunks(self, prepared):
         coords, wb = prepared["coords"], prepared["window_batch"]
@@ -194,15 +196,13 @@ class SlidingWindowInference:
     def _with_oom_fallback(self, prepared, fn):
         """Run `fn`; when the card runs out of memory at an automatic window
         batch, halve the batch and retry. An explicit `window_batch` is the
-        user's instruction and is never changed; nor is a sharded sweep's,
-        whose ranks would have to agree on the retry."""
+        user's instruction and is never changed."""
         while True:
             try:
                 return fn()
             except torch.cuda.OutOfMemoryError:
                 wb = prepared["window_batch"]
-                if (wb <= 1 or self.window_batch is not None
-                        or self.world is not None):
+                if wb <= 1 or self.window_batch is not None:
                     raise
             # retried outside the handler, so the failed attempt's tensors
             # are released first
@@ -234,6 +234,16 @@ class SlidingWindowSweep(SlidingWindowInference):
                          world.device if world is not None else device)
         self.world = world
         self.is_main = world is None or world.is_main
+
+    def _n_shards(self) -> int:
+        return 1 if self.world is None else self.world.size
+
+    def _with_oom_fallback(self, prepared, fn):
+        """A sharded sweep does not retry at a smaller window batch: its
+        ranks would have to agree on the retry."""
+        if self.world is not None:
+            return fn()
+        return super()._with_oom_fallback(prepared, fn)
 
     def _rank_chunks(self, prepared):
         """The chunks this rank encodes and fuses: every chunk without a

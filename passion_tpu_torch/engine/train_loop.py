@@ -63,7 +63,7 @@ from passion_tpu_torch.engine.schedule import (lr_at_epoch, make_optimizer,
                                                set_learning_rate)
 from passion_tpu_torch.masks import MASK_ARRAY, MASK_NAMES
 from passion_tpu_torch.models import init_model
-from passion_tpu_torch.parallel.world import all_reduce_grads
+from passion_tpu_torch.parallel.world import GradBuffer
 
 NUM_MODALS = 4
 SCALARS = ("loss", "fuse_loss", "prm_loss", "sep_loss", "kl_loss",
@@ -126,7 +126,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     """
     idt = model.mask_type != "pdt"
     train_forward = _train_forward(model, compute_dtype)
-    params = list(model.parameters())
+    grads = GradBuffer(model.parameters(), world) if world is not None \
+        else None
 
     def forward(x, mask, target, temp, generator):
         return train_forward(x, mask, target, temp, use_passion,
@@ -190,8 +191,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             loss = sep_loss if warmup else fuse_loss + sep_loss + prm_loss
 
         loss.backward()
-        if world is not None:
-            all_reduce_grads(params, world)
+        if grads is not None:
+            grads.all_reduce_()
         optimizer.step()
         metrics = dict(loss=loss, fuse_loss=fuse_loss, prm_loss=prm_loss,
                        sep_loss=sep_loss, kl_loss=kl_loss,

@@ -30,7 +30,6 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 300
-GRAD_BUCKET_ELEMENTS = 1 << 24  # 64 MiB of float32 per gradient all-reduce
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 
@@ -106,11 +105,10 @@ def under_torchrun() -> bool:
     return all(k in os.environ for k in _TORCHRUN_ENV)
 
 
-def _rank_main(rank, fn, size, device, init_method, timeout_s, threads,
-               args):
+def _rank_main(rank, fn, size, device, init_method, threads, args):
     if threads:
         torch.set_num_threads(threads)
-    world = init(rank, size, device, init_method, timeout_s=timeout_s)
+    world = init(rank, size, device, init_method)
     try:
         fn(world, *args)
     finally:
@@ -119,8 +117,7 @@ def _rank_main(rank, fn, size, device, init_method, timeout_s, threads,
 
 def launch(fn, size: int, device: str = "cuda", args: tuple = (),
            init_method: str | None = None, timeout_s: float | None = None,
-           threads: int | None = None,
-           collective_timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+           threads: int | None = None) -> None:
     """Run `fn(world, *args)` on `size` ranks and wait for all of them.
 
     Under `torchrun` (its environment set) this process is one rank: it
@@ -132,8 +129,7 @@ def launch(fn, size: int, device: str = "cuda", args: tuple = (),
     if under_torchrun():
         world = init(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
                      device, "env://",
-                     local_rank=int(os.environ["LOCAL_RANK"]),
-                     timeout_s=collective_timeout_s)
+                     local_rank=int(os.environ["LOCAL_RANK"]))
         try:
             fn(world, *args)
         finally:
@@ -143,8 +139,7 @@ def launch(fn, size: int, device: str = "cuda", args: tuple = (),
 
     ctx = mp.start_processes(
         _rank_main, args=(fn, size, device,
-                          init_method or free_tcp_address(),
-                          collective_timeout_s, threads, args),
+                          init_method or free_tcp_address(), threads, args),
         nprocs=size, join=False, start_method="spawn")
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):
@@ -158,34 +153,36 @@ def launch(fn, size: int, device: str = "cuda", args: tuple = (),
                                f"finish within {timeout_s} s")
 
 
-def all_reduce_grads(params, world: World,
-                     bucket_elements: int = GRAD_BUCKET_ELEMENTS) -> None:
-    """Sum the gradients of `params` over the ranks, in place: SUM, not
-    the mean that DistributedDataParallel takes, because the step's loss is
-    a sum over the global batch. A missing gradient takes part as zeros
-    (the optimizer treats it so) and comes back as the summed tensor. The
-    gradients go in flat buckets, in `params` order, which is the same on
-    every rank, so every rank calls the same collectives in the same
-    order."""
-    params = list(params)
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    bucket: list[torch.Tensor] = []
+class GradBuffer:
+    """Sums the gradients of `params` over the ranks through one flat
+    buffer: SUM, not the mean that DistributedDataParallel takes, because
+    the step's loss is a sum over the global batch.
 
-    def flush():
-        flat = world.all_reduce_(torch.cat([p.grad.reshape(-1)
-                                            for p in bucket]))
-        off = 0
-        for p in bucket:
-            p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
-            off += p.numel()
-        bucket.clear()
+    `all_reduce_()`, after the backward, copies every gradient into the
+    buffer with one multi-tensor copy (a missing gradient is zeroed there:
+    the warmup branch leaves the fuse path unused, and the optimizer treats
+    a missing gradient as zeros), sums the buffer in one all-reduce and sets
+    each param's `.grad` to its view of the buffer, so nothing is copied
+    back. Every rank builds the buffer from the same params in the same
+    order, so every rank calls the same collective."""
 
-    for p in params:
-        if bucket and (p.grad.dtype != bucket[0].grad.dtype or sum(
-                q.numel() for q in bucket) + p.numel() > bucket_elements):
-            flush()
-        bucket.append(p)
-    if bucket:
-        flush()
+    def __init__(self, params, world: World):
+        self.params = list(params)
+        self.world = world
+        self.flat = torch.empty(sum(p.numel() for p in self.params),
+                                dtype=self.params[0].dtype,
+                                device=self.params[0].device)
+        self.views = [v.view_as(p) for v, p in zip(
+            self.flat.split([p.numel() for p in self.params]), self.params)]
+
+    def all_reduce_(self) -> None:
+        grads = [p.grad for p in self.params]
+        missing = [v for v, g in zip(self.views, grads) if g is None]
+        if missing:
+            torch._foreach_zero_(missing)
+        torch._foreach_copy_(
+            [v for v, g in zip(self.views, grads) if g is not None],
+            [g for g in grads if g is not None])
+        self.world.all_reduce_(self.flat)
+        for p, v in zip(self.params, self.views):
+            p.grad = v

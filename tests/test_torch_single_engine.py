@@ -177,7 +177,8 @@ def test_make_engine_picks_by_the_split(mmformer, caplog):
         one = tsw.make_engine(_ForwardOnly(tm), 4, PATCH,
                               world=World(0, 2, torch.device("cpu")),
                               compute_dtype=torch.float32)
-    assert type(one) is tsw.SlidingWindowInference and one.world is None
+    assert type(one) is tsw.SlidingWindowInference
+    assert one.device == torch.device("cpu")
     assert "one device" in caplog.text
     vol = np.random.default_rng(6).standard_normal((24, 24, 20, 4)).astype(
         np.float32)
