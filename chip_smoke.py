@@ -78,10 +78,26 @@ Phases (each raises on failure; any failure exits non-zero):
      phase 4's; and the train CLI with `--data_parallel 1` (and 2 where
      two cards are visible).
 
+  Reference checkpoints and preprocessing:
+
+  17. for each backbone at its published width, an upstream-format
+     checkpoint (`{epoch, state_dict, optim_dict}`, `module.` prefix;
+     seeded normal values, scale 0.02) built from the converter's table
+     read backwards, loaded by `load_torch_checkpoint` and the backbone's
+     `*_params_from_torch` strictly into a model on the card, each port
+     tensor equal to its upstream slice(s); then mmFormer's phase-4 sweep
+     under those weights (363 K1/K2 launches, every distinct norm input
+     held against the plain version, the float32 check, mask-cases/s), and
+     one encode and one fuse pass each for RFNet and M2FTrans;
+  18. `python -m passion_tpu_torch.data.preprocess split` and `imbmr` on
+     phase 8's npy root: the lists equal `split_dataset`'s, the CSV equals
+     `generate_imb_mr`'s byte for byte (host only).
+
 The kernels' JSON lists each kernel's launches on every path
 (`launches_by_path`: one sweep and the timed train steps of each
 backbone; phase 14's single-mask run, phase 15's 15-mask validation
-batch, phase 16's timed data-parallel steps and sharded sweep);
+batch, phase 16's timed data-parallel steps and sharded sweep, phase 17's
+run of each backbone under imported weights, `import:{name}`);
 `launches` is mmFormer's, the first main path.
 TF32 stays at torch's default (as `passion_tpu_torch.eval` and `.train`
 run) except around the float32 comparisons, where it is off.
@@ -285,16 +301,21 @@ def phase_kernels(torch, fn):
     return err
 
 
-def phase_main_path(torch, fn, card, err, name):
-    """Phases 4, 10, 11: the full-width 15-mask sweep of one 240x240x155
-    case by backbone `name`. Folds the on-path check's errors into `err`;
-    returns the model, the launches, the engine, the prepared case and the
-    times."""
+def phase_main_path(torch, fn, card, err, name, model=None):
+    """Phases 4, 10, 11 (and 17): the full-width 15-mask sweep of one
+    240x240x155 case by backbone `name`, with `model`'s weights if given
+    (else seed 0's). Folds the on-path check's errors into `err`; returns
+    the model, the launches, the engine, the prepared case and the
+    labels."""
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.masks import MASK_ARRAY
     from passion_tpu_torch.models import get_model, init_model
 
-    model = init_model(get_model(name), seed=0)  # full width, patch 80
+    tag = name
+    if model is None:
+        model = init_model(get_model(name), seed=0)  # full width, patch 80
+    else:
+        tag = f"{name} (upstream checkpoint)"
     sites = NORM_SITES[name]
     vol = full_volume()
     masks = [np.asarray(m) for m in MASK_ARRAY]
@@ -364,7 +385,7 @@ def phase_main_path(torch, fn, card, err, name):
     if prepared["window_batch"] != WINDOWS:
         raise AssertionError("the timed sweeps fell back to a smaller "
                              "window batch (out of memory)")
-    log(f"  [{card}] {name}: encode {encode_ms:.1f} ms; fuse pass mean "
+    log(f"  [{card}] {tag}: encode {encode_ms:.1f} ms; fuse pass mean "
         f"{np.mean(fuse_ms):.1f} ms (min {min(fuse_ms):.1f}, max "
         f"{max(fuse_ms):.1f}); sweep {[round(s, 4) for s in sweeps]} s -> "
         f"{[round(r, 4) for r in rate]} mask-cases/s; peak memory "
@@ -1199,6 +1220,153 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
     return out
 
 
+def upstream_state_dict(torch, table, port_sd, rng, scale=0.02):
+    """An upstream-format (reference PyTorch) state_dict for `table`, its
+    rows read backwards: shapes from the port's state_dict (a slotted conv
+    row holds a quarter of the port tensor's dim 0, a slotted `pos` one
+    slice, a ModalFusion Linear a 1x1x1 conv), seeded normal values."""
+    sd = {}
+    for up, port, slot in table:
+        shape = tuple(port_sd[port].shape)
+        if slot is not None:
+            shape = ((shape[0] // 4,) + shape[1:]
+                     if port.endswith((".weight", ".bias")) else shape[1:])
+        elif ".weight_layer." in up and up.endswith(".weight"):
+            shape += (1, 1, 1)
+        sd[up] = torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32))
+    return sd
+
+
+def phase_import(torch, fn, card, err, name) -> dict:
+    """Phase 17: a reference checkpoint of backbone `name` at its published
+    width, written as the upstream train.py writes it (`{epoch,
+    state_dict, optim_dict}`, DataParallel's `module.` prefix), loaded with
+    `load_torch_checkpoint` and the backbone's converter into a model on
+    the card (strict), every port tensor held equal to its upstream
+    slice(s). Then, under those weights: mmFormer's whole phase-4 sweep;
+    RFNet and M2FTrans one encode and one fuse pass of the phase-4 case
+    (full mask), every distinct norm input held against the plain
+    version. Folds the errors into `err`; returns the launches."""
+    from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
+    from passion_tpu_torch.interop import torch_weights as tw
+    from passion_tpu_torch.masks import MASK_ARRAY
+    from passion_tpu_torch.models import get_model
+
+    table, convert = {
+        "mmformer": (tw.mmformer_table(), tw.mmformer_params_from_torch),
+        "rfnet": (tw.rfnet_table(), tw.rfnet_params_from_torch),
+        "m2ftrans": (tw.m2ftrans_table(), tw.m2ftrans_params_from_torch),
+    }[name]
+    model = get_model(name)  # published width, patch 80
+    sd = upstream_state_dict(torch, table, model.state_dict(),
+                             np.random.default_rng(0))
+    path = os.path.join(WORK, f"upstream_{name}.pth")
+    torch.save({"epoch": 0, "state_dict": {"module." + k: v
+                                           for k, v in sd.items()},
+                "optim_dict": {}}, path)
+    t0 = time.perf_counter()
+    model = model.cuda()
+    model.load_state_dict(convert(tw.load_torch_checkpoint(path)),
+                          strict=True)
+    load_s = time.perf_counter() - t0
+    held = model.state_dict()
+    for up, port, slot in table:
+        got = held[port]
+        if slot is not None:
+            got = (got.chunk(4, 0)[slot] if port.endswith((".weight", ".bias"))
+                   else got[slot])
+        if not torch.equal(got.reshape(sd[up].shape).cpu(), sd[up]):
+            raise AssertionError(f"{port} differs from upstream {up}")
+    log(f"  {name}: {os.path.getsize(path) / 2 ** 20:.1f} MiB upstream "
+        f"checkpoint, {len(sd)} upstream tensors -> {len(held)} port "
+        f"tensors, loaded strictly onto the card in {load_s:.2f} s; every "
+        f"port tensor equals its upstream slice(s)")
+    del sd, held
+
+    if name == "mmformer":
+        model, launches, engine, prepared, _ = phase_main_path(
+            torch, fn, card, err, name, model=model)
+        del model, engine, prepared
+        return launches
+    engine = SlidingWindowSweep(model, num_cls=4, patch=80)
+    del model
+    prepared = engine.prepare(full_volume())
+    seen = {}
+    reset_counts(fn)
+    with checked_norm(torch, fn, seen):
+        fts = engine.encode_case(prepared)
+        labels = engine.infer_labels_masked(prepared, fts,
+                                            np.asarray(MASK_ARRAY[-1]))
+    launches = counts(fn)
+    chunks = len(fts)
+    expect = chunks * (NORM_SITES[name]["encode"] + NORM_SITES[name]["fuse"])
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
+        raise AssertionError(f"launches {launches}, expected {expect} of "
+                             f"K1 and K2")
+    if sum(c for c, _, _ in seen.values()) != expect:
+        raise AssertionError("norm calls and K1 launches disagree")
+    for (shape, dt, pg), (calls, e1, e2) in seen.items():
+        err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
+    if labels.shape != VOLUME or labels.dtype != np.uint8 or labels.max() > 3:
+        raise AssertionError(f"bad labels {labels.shape} {labels.dtype}")
+    log(f"  {name} under the upstream weights, one encode and one fuse pass "
+        f"(full mask, bf16, {chunks} chunk): launches {launches}; "
+        f"{len(seen)} distinct norm inputs held against the plain version; "
+        f"labels {VOLUME} uint8 in 0..{labels.max()}")
+    del engine, prepared, fts
+    return launches
+
+
+def phase_preprocess() -> None:
+    """Phase 18: the offline preprocessing CLI on phase 8's synthetic npy
+    root (host only; `convert` needs nibabel, which is not installed):
+    `split` then `imbmr`, each a `python -m passion_tpu_torch.data.preprocess`
+    process; the lists against `split_dataset`, the CSV against
+    `generate_imb_mr` on the same train list, byte for byte."""
+    from passion_tpu_torch.data.preprocess import (generate_imb_mr,
+                                                   split_dataset)
+
+    data = os.path.join(WORK, "train_data")
+    root, ref = os.path.join(WORK, "preprocess"), os.path.join(WORK,
+                                                               "split_ref")
+    os.makedirs(root)
+    os.symlink(os.path.join(data, "vol"), os.path.join(root, "vol"))
+
+    def cli(*args):
+        subprocess.run([sys.executable, "-m",
+                        "passion_tpu_torch.data.preprocess", *args],
+                       cwd=REPO, check=True, timeout=300)
+
+    t0 = time.perf_counter()
+    cli("split", "--npy-root", root)
+    names = sorted(f[:-len("_vol.npy")] for f in os.listdir(
+        os.path.join(root, "vol")) if f.endswith("_vol.npy"))
+    want = split_dataset(names, ref)
+    for fname, lst in want.items():
+        with open(os.path.join(root, fname)) as f:
+            got = f.read()
+        if got != "".join(n + "\n" for n in lst):
+            raise AssertionError(f"{fname}: {got!r}, expected {lst}")
+    if sorted(sum(want.values(), [])) != names:
+        raise AssertionError(f"the split lost cases: {want}")
+    csv_path = os.path.join(root, "imb_split.csv")
+    cli("imbmr", "--train-file", os.path.join(root, "train.txt"),
+        "--out-csv", csv_path)
+    generate_imb_mr(want["train.txt"], os.path.join(ref, "imb_split.csv"))
+    with open(csv_path, "rb") as f, open(os.path.join(
+            ref, "imb_split.csv"), "rb") as g:
+        got, direct = f.read(), g.read()
+    if got != direct or len(got.splitlines()) != 1 + len(want["train.txt"]):
+        raise AssertionError("the imb-MR CSV of the CLI differs from "
+                             "generate_imb_mr's")
+    log(f"  split of {len(names)} cases: "
+        f"{ {k: len(v) for k, v in want.items()} }, equal to split_dataset; "
+        f"imb-MR CSV of {len(want['train.txt'])} rows equal to "
+        f"generate_imb_mr's byte for byte; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "passion_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repo "
@@ -1209,6 +1377,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
@@ -1301,11 +1470,21 @@ def main() -> int:
         f"{1 if torch.cuda.device_count() < 2 else '1 and 2'})")
     dp = phase_data_parallel(torch, fn, card, mmformer_step_ms, sweep_labels)
     del sweep_labels
+    torch.cuda.empty_cache()
     for k in KERNELS:
         by_path[k]["single_mask:mmformer"] = single[k]
         by_path[k]["val_15_masks:mmformer"] = val[k]
         by_path[k]["train_steps_dp:mmformer"] = dp["train"][k]
         by_path[k]["sweep_dp:mmformer"] = dp["sweep"][k]
+    log("== 17. reference checkpoint import (upstream .pth), published "
+        "widths; mmFormer's 15-mask sweep under it")
+    for name in BACKBONES:
+        launches = phase_import(torch, fn, card, errs, name)
+        for k in KERNELS:
+            by_path[k][f"import:{name}"] = launches[k]
+        torch.cuda.empty_cache()
+    log("== 18. preprocessing CLI (split, imbmr) on phase 8's npy root")
+    phase_preprocess()
     for k in KERNELS:
         log(f"  {k} launches by path: {by_path[k]}")
 
@@ -1341,6 +1520,7 @@ def main() -> int:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                    "bound_ms")):
             raise AssertionError(f"non-finite timing in {k}")
+    log(f"  all phases {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,16 @@ each counterpart is easy to find:
   * `models`                   mmFormer inference and training forward
                                (`get_model`, `init_model`);
   * `interop.jax_weights`      JAX param tree / .npz -> port state_dict;
+  * `interop.torch_weights`    reference PyTorch checkpoint -> port
+                               state_dict;
   * `engine.sliding_window`    the 15-mask sliding-window sweep;
   * `engine.evaluator`         Dice/HD95 scoring and the reference CSV;
   * `engine.train_loop`        the PASSION train step and `fit`, with
                                `engine.schedule` (lr, AdamW-AMSGrad),
                                `engine.checkpoint`, `engine.tb_writer`;
-  * `data`                     BraTS datasets, augmentations, loader, synth;
+  * `data`                     BraTS datasets, augmentations, loader, synth,
+                               offline preprocessing (NIfTI -> npy, split,
+                               imb-MR CSV);
   * `eval`, `train`            `python -m passion_tpu_torch.eval` / `.train`.
 
 Tensors are PyTorch's (B, C, H, W, Z); the JAX package's are

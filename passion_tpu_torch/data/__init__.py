@@ -1,2 +1,2 @@
 """Data of the port: BraTS npy datasets, augmentations, the prefetching
-loader and a synthetic generator."""
+loader, a synthetic generator and the offline preprocessing."""

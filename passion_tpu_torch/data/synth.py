@@ -1,6 +1,6 @@
-"""Synthetic BraTS-like data (copy of `passion_tpu/data/synth.py`, with
-`generate_imb_mr` from `passion_tpu/data/preprocess.py:137-200`; the same
-seed gives the same volumes and the same CSV).
+"""Synthetic BraTS-like data (copy of `passion_tpu/data/synth.py`; the same
+seed gives the same volumes and, through `preprocess.generate_imb_mr`, the
+same CSV).
 
 Writes the on-disk layout the data layer reads: vol/*.npy (H, W, Z, 4)
 float32, seg/*.npy (H, W, Z) uint8 in {0..3}, train/val/test lists, and
@@ -14,83 +14,11 @@ Usage: `python -m passion_tpu_torch.data.synth OUTDIR [--cases 6]
 from __future__ import annotations
 
 import argparse
-import csv
 import os
 
 import numpy as np
 
-from passion_tpu_torch.masks import mask_id_of, sub_combination_ids
-
-# The reference's combination allocation order, as (t1, t1c, flair, t2)
-# presence tuples (generate_imb_mr.py:46-173: tttt, ttft, tttf, ttff, ...).
-_COMBO_ORDER = [
-    tuple(ch == "t" for ch in name)
-    for name in ("tttt", "ttft", "tttf", "ttff", "tftt", "tftf", "tfft",
-                 "tfff", "fttt", "ftft", "fttf", "ftff", "fftt", "fftf",
-                 "ffft")
-]
-
-
-def generate_imb_mr(train_names, csv_path, p=(0.2, 0.4, 0.6, 0.8),
-                    seed=1037):
-    """Write the imbalanced-missing-rate CSV as the reference generator
-    does (generate_imb_mr.py:20-283), bit for bit: the legacy MT19937
-    stream of np.random.seed/rand/shuffle/get_state, four i.i.d. presence
-    draws, the expected-count overwrite of the first `count` slots in
-    `_COMBO_ORDER` (count = int(n * prod(present ? 1 - p_i : p_i)), 1 if
-    0), an all-missing tail, an identical-state co-shuffle of the four
-    presence arrays, and per-row re-rolls of all-missing rows at write
-    time. Rows are `data_name, mask_id, mask, pos_mask_ids`.
-
-    p: per-modality MISSING probabilities in the reference's (t1, t1c,
-    flair, t2) order. Returns the per-modality present counts in canonical
-    (flair, t1ce, t1, t2) order."""
-    names = sorted(train_names)
-    n = len(names)
-    rs = np.random.RandomState(seed)  # legacy MT19937 == np.random.seed
-
-    # i.i.d. draws (generate_imb_mr.py:37-41), consumed from the stream
-    # even though the first `count` slots are overwritten below
-    cols = [rs.rand(n) > pi for pi in p]  # t1, t1c, flair, t2
-    count = 0
-    for bits in _COMBO_ORDER:
-        prob = 1.0
-        for present, miss_p in zip(bits, p):
-            prob *= (1.0 - miss_p) if present else miss_p
-        c = int(n * prob)
-        c = c if c > 0 else c + 1
-        for col, present in zip(cols, bits):
-            col[count:count + c] = present
-        count += c
-    for col in cols:  # all-missing tail (generate_imb_mr.py:167-171)
-        col[count:] = False
-
-    # identical-state co-shuffle (generate_imb_mr.py:191-198)
-    state = rs.get_state()
-    for col in cols:
-        rs.set_state(state)
-        rs.shuffle(col)
-
-    t1, t1c, flair, t2 = cols
-    os.makedirs(os.path.dirname(csv_path) or ".", exist_ok=True)
-    modal_counts = np.zeros(4, dtype=np.int64)
-    with open(csv_path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["data_name", "mask_id", "mask", "pos_mask_ids"])
-        for i, name in enumerate(names):
-            # all-missing rows re-rolled at write time
-            # (generate_imb_mr.py:213-219)
-            while not (t1[i] or t1c[i] or flair[i] or t2[i]):
-                t1[i] = rs.rand(1) > p[0]
-                t1c[i] = rs.rand(1) > p[1]
-                flair[i] = rs.rand(1) > p[2]
-                t2[i] = rs.rand(1) > p[3]
-            # canonical column order: flair, t1ce, t1, t2 (masks.MODALITIES)
-            mask = [bool(flair[i]), bool(t1c[i]), bool(t1[i]), bool(t2[i])]
-            modal_counts += np.array(mask, dtype=np.int64)
-            w.writerow([name, mask_id_of(mask), mask,
-                        sub_combination_ids(mask)])
-    return modal_counts
+from passion_tpu_torch.data.preprocess import generate_imb_mr
 
 
 def _blob(shape, center, radius):

@@ -21,6 +21,7 @@ from passion_tpu_torch import masks as tmasks
 from passion_tpu_torch.config import train_transforms_for as t_transforms_for
 from passion_tpu_torch.data import datasets as tds
 from passion_tpu_torch.data import loader as tloader
+from passion_tpu_torch.data import preprocess as tpre
 from passion_tpu_torch.data import synth as tsynth
 from passion_tpu_torch.data import transforms as tT
 
@@ -52,8 +53,8 @@ def test_synthetic_dataset_is_byte_identical(roots):
 def test_imb_mr_csv_matches_jax(tmp_path, p, seed):
     names = [f"case_{i:03d}" for i in range(40)]
     jc = jpre.generate_imb_mr(names, str(tmp_path / "j.csv"), p=p, seed=seed)
-    tc = tsynth.generate_imb_mr(names, str(tmp_path / "t.csv"), p=p,
-                                seed=seed)
+    tc = tpre.generate_imb_mr(names, str(tmp_path / "t.csv"), p=p,
+                              seed=seed)
     np.testing.assert_array_equal(tc, jc)
     assert (tmp_path / "j.csv").read_bytes() == (tmp_path / "t.csv"
                                                  ).read_bytes()
