@@ -18,18 +18,23 @@ Phases (each raises on failure; any failure exits non-zero):
      model hands the norm is held against the plain version; the kernel
      path against the plain-norm path in float32 on two windows; encode /
      fuse / sweep times and peak memory;
-  4b. profile: torch.profiler over one encode and one fuse pass of the
-     same case, after the timed sweeps: device busy share and kernel time
-     by name;
-  5. entry point: `passion_tpu_torch.eval.main` on two synthetic cases;
+  4b. profile (`passion_tpu_torch.profile`): torch.profiler over one
+     encode and one fuse pass of the same case, after the timed sweeps:
+     device busy share and kernel time by name;
+  5. entry point: `passion_tpu_torch.eval.main` on 2 synthetic 240x240x155
+     cases, timed end to end as `bench --eval_cli` times it (loading,
+     staging, sweeps, Dice, HD95, CSV): mask-cases/s beside phase 4's
+     engine rate;
   6. kernel timing at the largest main-path shape, beside the bandwidth
-     bound, the plain version and one PyTorch library call; the timed
-     outputs are held against the plain version;
+     bound, the plain version and one PyTorch library call, each the
+     median of launches queued behind a device-side wait and timed one by
+     one (`kernel_ms`); the timed outputs are held against the plain
+     version;
   10, 11. phases 4, 4b and 5 for RFNet (10, 10b, 10c) and M2FTrans (11,
      11b, 11c) at their published widths: each sweep's K1/K2 launches,
      every distinct norm input held against the plain version, the window
      batch held at 75 (no out-of-memory fallback), the float32 check,
-     times, a trace, the eval CLI with `--model`.
+     times, a trace, the eval CLI with `--model` on two small cases.
 
   Training (the sweeps' tensors are freed first):
 
@@ -48,7 +53,7 @@ Phases (each raises on failure; any failure exits non-zero):
   8. entry point: `passion_tpu_torch.train.main` on synthetic cases at
      full width, 1 epoch x 2 iterations, then `--resume` for epoch 2;
   9. K3/K4 timing at the largest training shape, beside the bandwidth
-     bound, the plain version and the library's backward;
+     bound, the plain version and the library's backward (as phase 6);
   12, 13. phases 7, 7b and 8 for RFNet (12, 12b, 12c; no dropout) and
      M2FTrans (13, 13b, 13c): K1-K4 launches per step, steps/s, peak
      memory, the float32 kernel-vs-plain-norm step, a trace, the train CLI
@@ -93,6 +98,15 @@ Phases (each raises on failure; any failure exits non-zero):
      phase 8's npy root: the lists equal `split_dataset`'s, the CSV equals
      `generate_imb_mr`'s byte for byte (host only).
 
+  Measurement entry points:
+
+  19. `python -m passion_tpu_torch.bench` (mmFormer: sweep, train, single
+     and loader at a few reps) in a process of its own: every rate finite
+     and positive, `mfu_sweep` and `mfu_train` in (0, 1), one window's
+     forward FLOPs beside bench.py's XLA count of the TPU program; then
+     `python -m passion_tpu_torch.profile fuse --model rfnet`: its trace
+     file and kernel table.
+
 The kernels' JSON lists each kernel's launches on every path
 (`launches_by_path`: one sweep and the timed train steps of each
 backbone; phase 14's single-mask run, phase 15's 15-mask validation
@@ -125,9 +139,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")  # listed in .gitignore
 VOLUME = (240, 240, 155)  # one BraTS case
 WINDOWS = 75  # windows of 80^3 in VOLUME: one chunk at the auto batch
-TOP = 15  # kernels listed per traced phase (4b)
-NORM_KERNELS = ("stats_partial_kernel", "stats_merge_kernel", "apply_kernel",
-                "bwd_partial_kernel", "bwd_merge_kernel", "bwd_apply_kernel")
+# phase 5: synthetic 240x240x155 cases through the eval CLI (its HD95 takes
+# about 45 s a case on the host; `bench --eval_cli` times 4)
+CLI_CASES = 2
+# phase 19's bench: the modes and reps it runs (a few of each)
+BENCH_ARGS = ("--sweep", "--train", "--single", "--loader", "--reps", "2",
+              "--train_reps", "2", "--train_steps", "5", "--single_reps", "2",
+              "--loader_cases", "4", "--loader_iters", "20")
+XLA_WINDOW_FLOPS = 71.33e9  # bench.py:49, the canonical TPU program's count
+# cycles of torch.cuda._sleep per second: at least the SM clock of an H100
+# (1.98 GHz at most), so a wait lasts at least as long as asked
+SLEEP_CYCLES_PER_S = 2.0e9
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 OPS_PER_ELEMENT = 4  # K1: sub, add, fma (2); K2: sub, mul, compare, mul
@@ -157,14 +179,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean time of one call of `fn` over `reps` calls between two CUDA
+    events: the device's time and any gaps the host leaves it."""
     import torch
 
     for _ in range(warmup):
@@ -177,6 +194,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median device time of one call of `fn`: the `reps` calls are queued
+    behind a device-side wait (`torch.cuda._sleep`) that lasts twice their
+    enqueue, each between its own pair of events, so time in which the
+    host is still enqueuing does not count as the kernel's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * enqueue_s + 1e-3)))
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
 def reset_counts(fn) -> None:
@@ -305,8 +348,9 @@ def phase_main_path(torch, fn, card, err, name, model=None):
     """Phases 4, 10, 11 (and 17): the full-width 15-mask sweep of one
     240x240x155 case by backbone `name`, with `model`'s weights if given
     (else seed 0's). Folds the on-path check's errors into `err`; returns
-    the model, the launches, the engine, the prepared case and the
-    labels."""
+    the model, the launches, the engine, the prepared case, the labels
+    and the timed sweeps' mask-cases/s."""
+    from passion_tpu_torch import bench
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.masks import MASK_ARRAY
     from passion_tpu_torch.models import get_model, init_model
@@ -317,7 +361,7 @@ def phase_main_path(torch, fn, card, err, name, model=None):
     else:
         tag = f"{name} (upstream checkpoint)"
     sites = NORM_SITES[name]
-    vol = full_volume()
+    vol = bench.volume()
     masks = [np.asarray(m) for m in MASK_ARRAY]
     engine = SlidingWindowSweep(model, num_cls=4, patch=80)
     prepared = engine.prepare(vol)
@@ -412,48 +456,7 @@ def phase_main_path(torch, fn, card, err, name, model=None):
         f"{(p_kernel - p_plain).abs().max().item():.3g}, fuse(features) vs "
         f"forward {(p_kernel - p_fwd).abs().max().item():.3g} (atol 1e-4)")
     del net, x, p_kernel, p_fwd, p_plain
-    return model, launches, engine, prepared, labels
-
-
-def _kernel_times(prof) -> dict[str, tuple[float, int]]:
-    """{kernel name: (device ms, calls)} of a torch.profiler trace."""
-    from torch.autograd import DeviceType
-
-    out = {}
-    for e in prof.key_averages():
-        # user ranges (the optimizer's step) show on the device timeline
-        # too, over kernels already counted: skip them
-        if e.device_type != DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False) or e.key.startswith(
-                    "Optimizer."):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:  # older torch
-            us = e.self_cuda_time_total
-        out[e.key] = (us / 1e3, e.count)
-    return out
-
-
-def report_trace(prof, wall_ms: float, label: str, card: str,
-                 top: int = TOP) -> dict:
-    """Log a trace's device busy share, its kernel launches, the norm
-    kernels' share and the `top` kernels that take the most device time;
-    return the totals."""
-    kernels = _kernel_times(prof)
-    busy = sum(ms for ms, _ in kernels.values())
-    calls = sum(n for _, n in kernels.values())
-    norm = sum(ms for k, (ms, _) in kernels.items()
-               if any(s in k for s in NORM_KERNELS))
-    log(f"  [{card}] {label}: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms "
-        f"(busy share {busy / wall_ms:.3f}), {calls} kernel launches; norm "
-        f"kernels {norm:.3f} ms ({norm / max(busy, 1e-9):.3f} of kernel "
-        f"time)")
-    for name, (ms, n) in sorted(kernels.items(),
-                                key=lambda kv: -kv[1][0])[:top]:
-        log(f"    {ms:9.3f} ms {ms / max(busy, 1e-9):6.3f} x{n:<5d} "
-            f"{name[:110]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, norm_ms=norm, calls=calls,
-                kernels=kernels)
+    return model, launches, engine, prepared, labels, rate
 
 
 def phase_profile(torch, engine, prepared, card, name):
@@ -462,61 +465,71 @@ def phase_profile(torch, engine, prepared, card, name):
     each: host-clock wall time, summed kernel time and their ratio (the
     device's busy share; the kernels run on one stream, so they do not
     overlap), the share of K1 + K2 and the kernels that take the most
-    device time. Tracing is on only here and in 7b, so no other phase pays
-    for it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    device time (`passion_tpu_torch.profile`). Tracing is on only here and
+    in 7b, so no other phase pays for it."""
+    from passion_tpu_torch import profile
     from passion_tpu_torch.masks import MASK_ARRAY
 
     mask = np.asarray(MASK_ARRAY[-1])
-    fts = None
-    for phase in ("encode", "fuse"):
-        if phase == "fuse":
-            fts = engine.encode_case(prepared)
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if phase == "encode":
-                engine.encode_case(prepared)
-            else:
-                engine._labels_device(prepared, fts, mask)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        report_trace(prof, wall_ms, f"{name} {phase}", card)
+    profile.report_trace(*profile.trace(lambda: engine.encode_case(prepared)),
+                         f"{name} encode", card)
+    fts = engine.encode_case(prepared)
+    torch.cuda.synchronize()
+    profile.report_trace(*profile.trace(
+        lambda: engine._labels_device(prepared, fts, mask)), f"{name} fuse",
+        card)
     del fts
 
 
-def phase_entry_point(torch, fn, model, name):
-    """Phases 5, 10c, 11c: `python -m passion_tpu_torch.eval --model name`
-    on 2 cases."""
+def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
+    """Phases 5, 10c, 11c: `python -m passion_tpu_torch.eval --model name`.
+    mmFormer (5, `engine_rate` given): `bench.bench_eval_cli`, the timing
+    of `bench --eval_cli`, on CLI_CASES synthetic 240x240x155 cases, end to
+    end (case loading, staging, the sweeps, Dice, HD95 and the CSV) beside
+    the engine's rate of phase 4; RFNet and M2FTrans (10c, 11c): `model`
+    on 2 small cases."""
+    from passion_tpu_torch import bench
     from passion_tpu_torch import eval as port_eval
     from passion_tpu_torch.data.synth import make_synthetic_dataset
 
-    data, out = os.path.join(WORK, "data"), os.path.join(WORK, f"out_{name}")
-    if not os.path.isdir(data):
-        make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80), seed=0)
-    ckpt = os.path.join(WORK, f"{name}.pt")
-    torch.save(model.state_dict(), ckpt)
-    reset_counts(fn)
-    port_eval.main(["--model", name, "--resume", ckpt, "--dataroot",
-                    data, "--datapath", ".", "--savepath", out])
-    launches = (fn.norm_stats.launches, fn.norm_apply.launches)
+    out = os.path.join(WORK, f"out_{name}")
+    timed = engine_rate is not None
+    if timed:
+        n_cases = CLI_CASES
+        run = bench.bench_eval_cli(name, n_cases, out=out)
+        launches = run["launches"][:2]
+    else:
+        data, n_cases = os.path.join(WORK, "data"), 2
+        if not os.path.isdir(data):
+            make_synthetic_dataset(data, n_cases=6, shape=(96, 96, 80),
+                                   seed=0)
+        ckpt = os.path.join(WORK, f"{name}.pt")
+        torch.save(model.state_dict(), ckpt)
+        reset_counts(fn)
+        port_eval.main(["--model", name, "--resume", ckpt, "--dataroot",
+                        data, "--datapath", ".", "--savepath", out])
+        launches = (fn.norm_stats.launches, fn.norm_apply.launches)
     with open(os.path.join(out, f"{name}.csv")) as f:
         rows = list(csv.reader(f))
-    if rows[0][-1] != "ET HD95ETPro HD95" or len(rows) != 1 + 15 * 3:
+    if rows[0][-1] != "ET HD95ETPro HD95" or len(rows) != 1 + 15 * (
+            1 + n_cases):
         raise AssertionError(f"unexpected CSV layout: {len(rows)} rows")
     names = [r[0] for r in rows[1:] if len(r) == 1]
     scores = np.array([[float(v) for v in r] for r in rows[1:] if len(r) == 8])
-    if len(names) != 15 or scores.shape != (30, 8) or not np.isfinite(
-            scores).all():
+    if len(names) != 15 or scores.shape != (15 * n_cases, 8) or \
+            not np.isfinite(scores).all():
         raise AssertionError(f"CSV: {len(names)} masks, scores "
                              f"{scores.shape}")
     if min(launches) <= 0:
         raise AssertionError(f"a kernel of the eval path never ran: "
                              f"{launches}")
-    log(f"  {name} eval CSV: 15 mask sections x 2 cases, finite scores; "
-        f"launches K1 {launches[0]}, K2 {launches[1]}")
+    log(f"  {name} eval CSV: 15 mask sections x {n_cases} cases, finite "
+        f"scores; launches K1 {launches[0]}, K2 {launches[1]}")
+    if timed:
+        log(f"  [{card}] eval CLI end to end: {n_cases} cases x 15 masks in "
+            f"{run['seconds']:.3f} s -> {run['rate']:.4f} mask-cases/s; the "
+            f"engine alone (phase 4) {[round(r, 4) for r in engine_rate]} "
+            f"mask-cases/s")
 
 
 def phase_timing(torch, fn, err):
@@ -530,18 +543,18 @@ def phase_timing(torch, fn, err):
     n = x.numel()
     rows = shape[0] * shape[1]
     stats = fn.norm_stats(x)
-    k1 = cuda_ms(lambda: fn.norm_stats(x), 10)
-    k2 = cuda_ms(lambda: fn.norm_apply(x, stats), 10)
-    p1 = cuda_ms(lambda: fn.norm_stats_plain(x), 3, 1)
-    p2 = cuda_ms(lambda: fn.norm_apply_plain(x, stats), 3, 1)
+    k1 = kernel_ms(lambda: fn.norm_stats(x), 10)
+    k2 = kernel_ms(lambda: fn.norm_apply(x, stats), 10)
+    p1 = kernel_ms(lambda: fn.norm_stats_plain(x), 3, 1)
+    p2 = kernel_ms(lambda: fn.norm_apply_plain(x, stats), 3, 1)
     e1, e2 = check_pair(torch, x.dtype, fn.norm_stats(x),
                         fn.norm_stats_plain(x), fn.norm_apply(x, stats),
                         fn.norm_apply_plain(x, stats))
     err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
     log(f"  timed outputs vs plain: stats err {e1:.3g}, output err {e2:.3g}")
     xv = x.view(rows, -1)
-    lib1 = cuda_ms(lambda: torch.var_mean(xv, dim=1, correction=0), 10)
-    pair = cuda_ms(lambda: F.leaky_relu(F.instance_norm(x), 0.2), 5)
+    lib1 = kernel_ms(lambda: torch.var_mean(xv, dim=1, correction=0), 10)
+    pair = kernel_ms(lambda: F.leaky_relu(F.instance_norm(x), 0.2), 5)
     # bound: the larger of the bytes (each input read once, each output
     # written once) over the memory rate and the float32 operations over
     # the card's float32 rate
@@ -551,7 +564,8 @@ def phase_timing(torch, fn, err):
     b1, b2 = max(bytes1, ops_ms), max(bytes2, ops_ms)
     by1 = "bytes" if bytes1 >= ops_ms else "operations"
     by2 = "bytes" if bytes2 >= ops_ms else "operations"
-    log(f"  {shape} bf16 ({n / 1e9:.3f} G elements): K1 {k1:.4f} ms (bound "
+    log(f"  {shape} bf16 ({n / 1e9:.3f} G elements), medians of launches "
+        f"queued behind a device-side wait: K1 {k1:.4f} ms (bound "
         f"{b1:.4f}), K2 {k2:.4f} ms (bound {b2:.4f}); plain {p1:.4f} / "
         f"{p2:.4f} ms; torch.var_mean {lib1:.4f} ms; F.instance_norm + "
         f"F.leaky_relu {pair:.4f} ms against K1+K2 {k1 + k2:.4f} ms")
@@ -654,47 +668,15 @@ def phase_backward_kernels(torch, fn, err):
         f"1e-4); {int((~far).sum())} elements at the kink left out")
 
 
-def train_batch(torch):
-    """bench.py:164-173 at bs 1, channels-first: seeded-noise 80^3 crop,
-    one-hot labels, mask [T, F, T, T]."""
-    rng = np.random.default_rng(0)
-    lab = rng.integers(0, 4, size=(1, 80, 80, 80))
-    masks = np.ones((1, 4), bool)
-    masks[0, :2] = [True, False]
-    x = rng.standard_normal((1, 80, 80, 80, 4)).astype(np.float32)
-    onehot = np.eye(4, dtype=np.float32)[lab]
-    return {"x": torch.from_numpy(np.moveaxis(x, -1, 1).copy()).cuda(),
-            "target": torch.from_numpy(np.moveaxis(onehot, -1, 1).copy()
-                                       ).cuda(),
-            "mask": torch.from_numpy(masks).cuda()}
-
-
-def train_setup(torch, compute_dtype, with_dropout, name, world=None):
-    """The full-width model `name` (seed 0), its optimizer at lr 2e-4 and
-    the train step (data-parallel over `world` if given), as
-    `passion_tpu_torch.engine.train_loop.fit` builds them."""
-    from passion_tpu_torch.engine.schedule import (make_optimizer,
-                                                   set_learning_rate)
-    from passion_tpu_torch.engine.train_loop import make_train_step
-    from passion_tpu_torch.models import get_model, init_model
-
-    model = init_model(get_model(name, mask_type="idt"), seed=0).cuda()
-    opt = make_optimizer(model.parameters(), 1e-4)
-    set_learning_rate(opt, 2e-4)
-    step = make_train_step(model, opt, use_passion=True,
-                           with_dropout=with_dropout,
-                           compute_dtype=compute_dtype, world=world)
-    return model, step
-
-
 def phase_train(torch, fn, card, name) -> dict:
     """Phases 7, 12, 13: the full-width PASSION train step of `name`, bf16
     over float32 master params, dropout on where the backbone has it, as
     `fit` runs it."""
-    batch = train_batch(torch)
+    from passion_tpu_torch import bench
+    batch = bench.train_batch()
     ones = torch.ones(4, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    model, step = train_setup(torch, torch.bfloat16, name != "rfnet", name)
+    model, step = bench.train_setup(name)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  {name} full width: {n_params / 1e6:.2f} M params")
 
@@ -736,16 +718,11 @@ def phase_train(torch, fn, card, name) -> dict:
 
 def phase_train_profile(torch, run, card, name, top: int = 30) -> dict:
     """Phases 7b, 12b, 13b (and 16): torch.profiler over one full-width
-    train step."""
-    from torch.profiler import ProfilerActivity, profile
+    train step (`passion_tpu_torch.profile`)."""
+    from passion_tpu_torch import profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run["step"]()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return report_trace(prof, wall_ms, f"{name} train step", card, top=top)
+    return profile.report_trace(*profile.trace(run["step"]),
+                                f"{name} train step", card, top=top)
 
 
 def phase_train_float32(torch, fn, name):
@@ -765,12 +742,13 @@ def phase_train_float32(torch, fn, name):
     holds little of the probability scales those rounding differences up
     in its gradients by the inverse of its share (1.8e-2 seen at RFM3's
     fourth region on the first run on the card)."""
-    batch = train_batch(torch)
+    from passion_tpu_torch import bench
+    batch = bench.train_batch()
     ones = torch.ones(4, device="cuda")
     res = {}
     with full_float32(torch):
         for path in ("kernel", "plain"):
-            model, step = train_setup(torch, None, False, name)
+            model, step = bench.train_setup(name, None, False)
             ctx = plain_norm(fn) if path == "plain" else contextlib.nullcontext()
             reset_counts(fn)
             torch.cuda.reset_peak_memory_stats()
@@ -887,17 +865,18 @@ def phase_backward_timing(torch, fn, err) -> dict:
     n, rows = x.numel(), shape[0] * shape[1]
     st = fn.norm_stats(x)
     b = fn.norm_bwd_stats(x, g, st)
-    k3 = cuda_ms(lambda: fn.norm_bwd_stats(x, g, st), 10)
-    k4 = cuda_ms(lambda: fn.norm_bwd_apply(x, g, st, b), 10)
-    p3 = cuda_ms(lambda: fn.norm_bwd_stats_plain(x, g, st), 3, 1)
-    p4 = cuda_ms(lambda: fn.norm_bwd_apply_plain(x, g, st, b), 3, 1)
+    k3 = kernel_ms(lambda: fn.norm_bwd_stats(x, g, st), 10)
+    k4 = kernel_ms(lambda: fn.norm_bwd_apply(x, g, st, b), 10)
+    p3 = kernel_ms(lambda: fn.norm_bwd_stats_plain(x, g, st), 3, 1)
+    p4 = kernel_ms(lambda: fn.norm_bwd_apply_plain(x, g, st, b), 3, 1)
     e3, e4 = check_bwd(torch, fn, x, g)
     err["K3"], err["K4"] = max(err["K3"], e3), max(err["K4"], e4)
     log(f"  timed outputs vs plain: row sums err {e3:.3g}, dx err {e4:.3g}")
     # the library's backward alone of F.leaky_relu(F.instance_norm(x))
     xr = x.detach().requires_grad_()
     y = F.leaky_relu(F.instance_norm(xr), 0.2)
-    lib = cuda_ms(lambda: torch.autograd.grad(y, xr, g, retain_graph=True), 5)
+    lib = kernel_ms(lambda: torch.autograd.grad(y, xr, g, retain_graph=True),
+                    5)
     del y
     ops_ms = OPS_PER_ELEMENT_BWD * n / FP32_OPS_PER_S * 1e3
     bytes3 = (2 * 2 * n + 16 * rows) / HBM_BYTES_PER_S * 1e3
@@ -905,23 +884,19 @@ def phase_backward_timing(torch, fn, err) -> dict:
     b3, b4 = max(bytes3, ops_ms), max(bytes4, ops_ms)
     by3 = "bytes" if bytes3 >= ops_ms else "operations"
     by4 = "bytes" if bytes4 >= ops_ms else "operations"
-    log(f"  {shape} bf16 ({n / 1e6:.2f} M elements): K3 {k3:.4f} ms (bound "
+    log(f"  {shape} bf16 ({n / 1e6:.2f} M elements), medians of launches "
+        f"queued behind a device-side wait: K3 {k3:.4f} ms (bound "
         f"{b3:.4f}), K4 {k4:.4f} ms (bound {b4:.4f}); plain {p3:.4f} / "
         f"{p4:.4f} ms; backward of F.leaky_relu(F.instance_norm) {lib:.4f} "
         f"ms against K3+K4 {k3 + k4:.4f} ms")
     return dict(k3=k3, k4=k4, p3=p3, p4=p4, lib=lib, b3=b3, b4=b4, by3=by3,
                 by4=by4)
 
-def full_volume():
-    """The seeded 240x240x155x4 case of phases 4, 14 and 16."""
-    return np.random.default_rng(0).standard_normal(VOLUME + (4,)).astype(
-        np.float32)
-
-
 def phase_single_mask(torch, fn, card, err) -> dict:
     """Phase 14: the single-mask engine (`SlidingWindowInference`) on the
     phase-4 case under the full mask, full-width mmFormer, bf16. Folds the
     on-path check's errors into `err`; returns the launches."""
+    from passion_tpu_torch import bench
     from passion_tpu_torch.engine.sliding_window import (
         SlidingWindowInference, SlidingWindowSweep)
     from passion_tpu_torch.masks import MASK_ARRAY
@@ -930,7 +905,7 @@ def phase_single_mask(torch, fn, card, err) -> dict:
     model = init_model(get_model("mmformer"), seed=0)
     mask = np.asarray(MASK_ARRAY[-1])
     engine = SlidingWindowInference(model, num_cls=4, patch=80)
-    prepared = engine.prepare(full_volume())
+    prepared = engine.prepare(bench.volume())
     if (len(prepared["coords"]), prepared["window_batch"]) != (WINDOWS,
                                                                WINDOWS):
         raise AssertionError("phase 14 runs one chunk of 75 windows")
@@ -953,7 +928,7 @@ def phase_single_mask(torch, fn, card, err) -> dict:
     if labels.shape != VOLUME or labels.dtype != np.uint8 or labels.max() > 3:
         raise AssertionError(f"bad labels {labels.shape} {labels.dtype}")
     sweep = SlidingWindowSweep(model, num_cls=4, patch=80)
-    ref = sweep.sweep_labels(sweep.prepare(full_volume()), [mask])[0]
+    ref = sweep.sweep_labels(sweep.prepare(bench.volume()), [mask])[0]
     del sweep
     differ = float((labels != ref).mean())
     log(f"  {len(seen)} distinct norm inputs held against the plain version; "
@@ -999,6 +974,7 @@ def phase_validation(torch, fn, card, err) -> dict:
     """Phase 15: the validation step of full-width mmFormer on one batch
     (bs 1, 80^3) under all 15 masks, then the train CLI with
     `--use_valid`. Returns the launches of the 15-mask batch."""
+    from passion_tpu_torch import bench
     from passion_tpu_torch import train as port_train
     from passion_tpu_torch.data.synth import make_synthetic_dataset
     from passion_tpu_torch.engine.tb_writer import read_scalars
@@ -1008,7 +984,7 @@ def phase_validation(torch, fn, card, err) -> dict:
 
     model = init_model(get_model("mmformer"), seed=0).cuda()
     val_step = make_val_step(model, 4)
-    batch = train_batch(torch)
+    batch = bench.train_batch()
     masks = torch.as_tensor(MASK_ARRAY, device="cuda")
 
     def one_batch():
@@ -1071,6 +1047,7 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
     """Phase 16: data parallelism at world size 1 over NCCL, in a process
     group of this process. Returns the launches of the timed bf16 steps
     and of the sharded sweep."""
+    from passion_tpu_torch import bench
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.masks import MASK_ARRAY
     from passion_tpu_torch.models import get_model, init_model
@@ -1079,13 +1056,13 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
     world = pw.init(0, 1, "cuda", pw.free_tcp_address(), timeout_s=120)
     out = {}
     try:
-        batch = train_batch(torch)
+        batch = bench.train_batch()
         ones = torch.ones(4, device="cuda")
         res = {}
         with full_float32(torch):
             for path in ("one", "dp"):
-                model, step = train_setup(torch, None, False, "mmformer",
-                                          world if path == "dp" else None)
+                model, step = bench.train_setup(
+                    "mmformer", None, False, world if path == "dp" else None)
                 m = step(batch, ones, ones, 4.0, None, False)
                 res[path] = dict(loss=m["loss"].item(), grads={
                     n: p.grad.detach().clone()
@@ -1114,9 +1091,9 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
         # so that the host's drift over the run falls on both
         runs = {}
         for path in ("one", "dp"):
-            model, step = train_setup(torch, torch.bfloat16, True,
-                                      "mmformer",
-                                      world if path == "dp" else None)
+            model, step = bench.train_setup(
+                "mmformer", torch.bfloat16, True,
+                world if path == "dp" else None)
             gen = torch.Generator(device="cuda").manual_seed(1)
 
             def one(step=step, gen=gen):
@@ -1178,7 +1155,7 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
         # the sharded sweep at world size 1 against phase 4's labels
         engine = SlidingWindowSweep(init_model(get_model("mmformer"), seed=0),
                                     num_cls=4, patch=80, world=world)
-        prepared = engine.prepare(full_volume())
+        prepared = engine.prepare(bench.volume())
         reset_counts(fn)
         labels = engine.sweep_labels(prepared, [np.asarray(m)
                                                 for m in MASK_ARRAY])
@@ -1248,6 +1225,7 @@ def phase_import(torch, fn, card, err, name) -> dict:
     RFNet and M2FTrans one encode and one fuse pass of the phase-4 case
     (full mask), every distinct norm input held against the plain
     version. Folds the errors into `err`; returns the launches."""
+    from passion_tpu_torch import bench
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.interop import torch_weights as tw
     from passion_tpu_torch.masks import MASK_ARRAY
@@ -1285,13 +1263,13 @@ def phase_import(torch, fn, card, err, name) -> dict:
     del sd, held
 
     if name == "mmformer":
-        model, launches, engine, prepared, _ = phase_main_path(
+        model, launches, engine, prepared, _, _ = phase_main_path(
             torch, fn, card, err, name, model=model)
         del model, engine, prepared
         return launches
     engine = SlidingWindowSweep(model, num_cls=4, patch=80)
     del model
-    prepared = engine.prepare(full_volume())
+    prepared = engine.prepare(bench.volume())
     seen = {}
     reset_counts(fn)
     with checked_norm(torch, fn, seen):
@@ -1367,6 +1345,61 @@ def phase_preprocess() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def _module(*args: str) -> dict:
+    """Run `python -m passion_tpu_torch.{args}` in a process of its own;
+    its output's last line parsed as JSON."""
+    out = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"{' '.join(args)} exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_bench() -> None:
+    """Phase 19: `python -m passion_tpu_torch.bench` (mmFormer; sweep,
+    train, single and loader at a few reps, BENCH_ARGS): every rate finite
+    and positive, each `mfu_*` in (0, 1); one window's forward FLOPs beside
+    the TPU program's XLA count (a count, not a speed). Then
+    `python -m passion_tpu_torch.profile fuse --model rfnet`: its trace file
+    and kernel table."""
+    t0 = time.perf_counter()
+    row = _module("passion_tpu_torch.bench", *BENCH_ARGS)
+    log(f"  bench {json.dumps(row)}")
+    rates = ("value", "value_best", "train_steps_per_sec",
+             "train_steps_per_sec_best", "single_cases_per_sec",
+             "single_cases_per_sec_best", "aug_crops_per_sec")
+    for k in rates:
+        if not (math.isfinite(row[k]) and row[k] > 0):
+            raise AssertionError(f"bench {k} = {row[k]}")
+    for k in ("mfu_sweep", "mfu_train"):
+        if row[k] is None or not 0 < row[k] < 1:
+            raise AssertionError(f"bench {k} = {row[k]}")
+    if row["metric"] != "brats_eval_sweep_throughput" or not row["chip"]:
+        raise AssertionError(f"bench line: {row['metric']}, {row['chip']}")
+    log(f"  {row['value']} mask-cases/s (mfu {row['mfu_sweep']}), "
+        f"{row['train_steps_per_sec']} steps/s (mfu {row['mfu_train']}), "
+        f"{row['single_cases_per_sec']} single-mask cases/s, "
+        f"{row['aug_crops_per_sec']} aug-crops/s; FLOPs of one 80^3 "
+        f"window's forward {row['flops_window_forward'] / 1e9:.2f} G (the "
+        f"port's aten ops) against {XLA_WINDOW_FLOPS / 1e9:.2f} G, bench.py's "
+        f"XLA count of the canonical TPU program; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = os.path.join(WORK, "profile")
+    prof = _module("passion_tpu_torch.profile", "fuse", "--model", "rfnet",
+                   "--out", out)
+    if not os.path.getsize(prof["trace"]) or prof["launches"] <= 0 or \
+            not 0 < prof["busy_share"] <= 1.05:
+        raise AssertionError(f"profile: {prof}")
+    mib = os.path.getsize(prof["trace"]) / 2 ** 20
+    log(f"  profile fuse --model rfnet: trace {mib:.1f} MiB, wall "
+        f"{prof['wall_ms']} ms, kernels "
+        f"{prof['kernel_ms']} ms (busy {prof['busy_share']}), "
+        f"{prof['launches']} launches, norm share {prof['norm_share']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "passion_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repo "
@@ -1381,7 +1414,9 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
-    card = card_line()
+    from passion_tpu_torch import bench
+
+    card = bench.card_line()
     log(f"== 1. device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
@@ -1413,7 +1448,7 @@ def main() -> int:
     for name in BACKBONES:
         main_no, cli_no = number[name]
         log(f"== {main_no}. {title[name]} 15-mask sweep, full width, bf16")
-        model, launches, engine, prepared, labels = phase_main_path(
+        model, launches, engine, prepared, labels, rate = phase_main_path(
             torch, fn, card, errs, name)
         if name == "mmformer":
             sweep_labels = labels  # phase 16 holds the sharded sweep to it
@@ -1426,7 +1461,8 @@ def main() -> int:
         del engine, prepared
         log(f"== {cli_no}. entry point: passion_tpu_torch.eval --model "
             f"{name}")
-        phase_entry_point(torch, fn, model, name)
+        phase_entry_point(torch, fn, card, model, name,
+                          rate if name == "mmformer" else None)
         if name == "mmformer":
             log("== 6. kernel timing")
             t = phase_timing(torch, fn, errs)
@@ -1485,6 +1521,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     log("== 18. preprocessing CLI (split, imbmr) on phase 8's npy root")
     phase_preprocess()
+    torch.cuda.empty_cache()
+    log("== 19. python -m passion_tpu_torch.bench and .profile")
+    phase_bench()
     for k in KERNELS:
         log(f"  {k} launches by path: {by_path[k]}")
 

@@ -166,8 +166,9 @@ def parse_config(argv=None) -> EvalConfig:
                    help="dataset root (default: ../datasets next to package)")
     p.add_argument("--savepath", default=d.savepath, type=str)
     p.add_argument("--resume", default=None, type=str,
-                   help="port checkpoint (torch.save of the state_dict) or "
-                        ".npz of the JAX package's flattened params")
+                   help="port checkpoint (torch.save of the state_dict), "
+                        "reference checkpoint (model_last.pth) or .npz of "
+                        "the JAX package's flattened params")
     p.add_argument("--window_batch", default=d.window_batch, type=int)
     p.add_argument("--data_parallel", default=d.data_parallel, type=int,
                    help=DATA_PARALLEL_HELP)

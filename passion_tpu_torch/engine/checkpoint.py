@@ -7,7 +7,9 @@
 100 epochs and for the last 5. `load_pretrained_params` is the
 `--use_pretrain` filtered merge (train.py:144-152): only keys present in
 both, with the same shape, are taken from the checkpoint, which may be a
-port checkpoint or an .npz of the JAX package's params.
+port checkpoint, an .npz of the JAX package's params or a checkpoint of the
+reference's PyTorch code (`{epoch, state_dict, optim_dict}`, the file its
+own `--use_pretrain` reads).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import torch
 from torch import nn
 
+from passion_tpu_torch.interop import torch_weights as tw
 from passion_tpu_torch.interop.jax_weights import load_jax_npz
 
 
@@ -33,25 +36,32 @@ def load_checkpoint(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_weights(path: str, model: str = "mmformer") -> dict:
-    """A state_dict of the backbone named `model` from a port checkpoint (a
-    full {epoch, model, optimizer} one, or a bare state_dict) or a JAX
-    .npz."""
+def load_weights(path: str, model: nn.Module) -> dict:
+    """A state_dict for `model` (one of the port's backbones) from a port
+    checkpoint (a full {epoch, model, optimizer} one, or a bare
+    state_dict), a reference checkpoint (a `state_dict` key: converted by
+    `interop.torch_weights`) or a JAX .npz (read as the tree of `model`'s
+    backbone, its class name in lower case)."""
     if path.endswith(".npz"):
-        return load_jax_npz(path, model)
+        return load_jax_npz(path, type(model).__name__.lower())
     state = load_checkpoint(path)
-    return state["model"] if "model" in state else state
+    if "model" in state:
+        return state["model"]
+    if "state_dict" in state:
+        return tw.params_from_torch(state, model)
+    return state
 
 
 def load_pretrained_params(path: str, model: nn.Module) -> list[str]:
     """Copy into `model` every tensor of the checkpoint whose key and shape
-    it has; the rest keep their values. Returns the keys taken. A JAX .npz
-    is read as the tree of `model`'s backbone (its class name, lower-case:
-    rfnet, mmformer, m2ftrans)."""
+    it has; the rest keep their values. Returns the keys taken, and raises
+    `ValueError` when the checkpoint matches none of them."""
     target = model.state_dict()
-    taken = {k: v for k, v in load_weights(
-                 path, type(model).__name__.lower()).items()
+    taken = {k: v for k, v in load_weights(path, model).items()
              if k in target and tuple(target[k].shape) == tuple(v.shape)}
+    if not taken:
+        raise ValueError(f"{path} holds no tensor of {type(model).__name__}'s "
+                         f"{len(target)} (no key and shape in common)")
     model.load_state_dict(taken, strict=False)
     return sorted(taken)
 

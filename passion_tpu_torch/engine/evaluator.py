@@ -6,11 +6,15 @@ CSVs (counterpart of `passion_tpu/engine/evaluator.py`).
 WT/TC/ET(+postpro) and HD95, one CSV row per case.
 
 `run_test_sweep` scores all 15: for each test case one
-`SlidingWindowSweep.sweep_labels` over every mask (cases outer, masks
+`SlidingWindowSweep.dispatch_labels` over every mask (cases outer, masks
 inner: each volume is staged on the card once), or one `infer_labels` per
 mask for an engine without the sweep, then Dice and HD95 per (case, mask).
+It runs one case deep, as the JAX evaluator does: case i + 1 is staged and
+its device work queued before case i's labels are fetched and scored.
 HD95 (four full-volume distance transforms per case and mask) runs in a
-thread pool beside the next case's device work. The CSV keeps the
+thread pool beside the device work, and after each case the results are
+read back until at most two cases of jobs (and their label volumes) wait
+(JAX evaluator.py:131-138, 196-209). The CSV keeps the
 reference's layout byte for byte: masks in reversed canonical order, a
 mask-name row before each mask's case rows, and the merged 'ET HD95ETPro
 HD95' header cell of the reference's string-concatenation quirk
@@ -109,34 +113,57 @@ def run_test_sweep(test_loader, engine, csv_name=None, masks=None,
     rows = {name: [] for _, name in order}
     scores = {name: (AverageMeter(), AverageMeter()) for _, name in order}
     n_batches = len(test_loader) if hasattr(test_loader, "__len__") else "?"
+    sweep = hasattr(engine, "dispatch_labels")
     pending = []  # (mask name, dice row, hd95 future), in emission order
 
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 4)) as pool:
-        for i, batch in enumerate(test_loader):
-            x = np.asarray(batch["x"])
-            target = np.asarray(batch["target"])
-            for k, name in enumerate(batch["name"]):
-                prepared = engine.prepare(x[k])
-                if hasattr(engine, "sweep_labels"):
-                    labels = engine.sweep_labels(prepared, sweep_masks)
-                else:
-                    labels = [engine.infer_labels(prepared, m)
-                              for m in sweep_masks]
-                for (_, mname), lab in zip(order, labels):
-                    _, ev = dice_class4(lab[None], target[k][None])
-                    pending.append((mname, ev[0], pool.submit(
-                        cal_hd95, lab, target[k])))
-                    logging.info(
-                        "Subject %d/%s [%s]%20s, DSC: %s", i + 1, n_batches,
-                        mname, name, ", ".join(
-                            f"{c}: {v:.4f}"
-                            for c, v in zip(CLASS_EVALUATION, ev[0])))
-        for mname, ev, fut in pending:
+    def drain(keep):
+        while len(pending) > keep:
+            mname, ev, fut = pending.pop(0)
             hd = np.asarray(fut.result())
             dm, hm = scores[mname]
             dm.update(ev)
             hm.update(hd)
             rows[mname].append(list(ev) + list(hd))
+
+    def dispatch(batch):
+        """Stage each case of a batch and queue its device work."""
+        prepared = [engine.prepare(xk) for xk in np.asarray(batch["x"])]
+        return dict(
+            target=np.asarray(batch["target"]), names=batch["name"],
+            labels=[engine.dispatch_labels(p, sweep_masks) if sweep else
+                    [engine.infer_labels(p, m) for m in sweep_masks]
+                    for p in prepared])
+
+    def score(i, staged, pool):
+        target = staged["target"]
+        for k, name in enumerate(staged["names"]):
+            labels = staged["labels"][k]
+            if sweep:
+                labels = engine.fetch_labels(labels)
+            for (_, mname), lab in zip(order, labels):
+                _, ev = dice_class4(lab[None], target[k][None])
+                pending.append((mname, ev[0], pool.submit(
+                    cal_hd95, lab, target[k])))
+                logging.info(
+                    "Subject %d/%s [%s]%20s, DSC: %s", i + 1, n_batches,
+                    mname, name, ", ".join(
+                        f"{c}: {v:.4f}"
+                        for c, v in zip(CLASS_EVALUATION, ev[0])))
+        # at most two cases of label volumes wait for the pool
+        drain(keep=2 * len(order) * len(staged["names"]))
+
+    # one case deep: case i + 1 is staged and its device work queued before
+    # case i's labels are fetched and scored
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 4)) as pool:
+        prev = None
+        for i, batch in enumerate(test_loader):
+            staged = dispatch(batch)
+            if prev is not None:
+                score(*prev, pool)
+            prev = (i, staged)
+        if prev is not None:
+            score(*prev, pool)
+        drain(keep=0)
 
     dice_meter = AverageMeter()
     hd95_meter = AverageMeter()

@@ -283,16 +283,41 @@ class SlidingWindowSweep(SlidingWindowInference):
         """Argmax labels (H, W, Z) uint8 for one mask from stored features."""
         return self._labels_device(prepared, fts, mask).cpu().numpy()
 
-    def sweep_labels(self, prepared, masks) -> list[np.ndarray]:
-        """Labels for every mask in `masks`, encoding each window once. All
-        fuse passes are queued before any label volume is copied back."""
+    def dispatch_labels(self, prepared, masks):
+        """Queue the labels of every mask in `masks` without waiting for
+        them: one encode, every mask's fuse pass, then on the card one
+        non-blocking copy of each label volume into pinned host memory.
+        `fetch_labels` of the result waits and returns them, so the host
+        can stage the next case meanwhile."""
 
         def go():
             fts = self.encode_case(prepared)
-            pending = [self._labels_device(prepared, fts, m) for m in masks]
-            return [lab.cpu().numpy() for lab in pending]
+            labs = [self._labels_device(prepared, fts, m) for m in masks]
+            if self.device.type != "cuda":
+                return labs, None
+            host = torch.empty((len(labs),) + tuple(labs[0].shape),
+                               dtype=torch.uint8, pin_memory=True)
+            for dst, lab in zip(host, labs):
+                dst.copy_(lab, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return list(host), done
 
         return self._with_oom_fallback(prepared, go)
+
+    @staticmethod
+    def fetch_labels(pending) -> list[np.ndarray]:
+        """(H, W, Z) uint8 labels of a `dispatch_labels` result, one per
+        mask, once the card has written them."""
+        labs, done = pending
+        if done is not None:
+            done.synchronize()
+        return [lab.numpy() for lab in labs]
+
+    def sweep_labels(self, prepared, masks) -> list[np.ndarray]:
+        """Labels for every mask in `masks`, encoding each window once. All
+        fuse passes are queued before any label volume is copied back."""
+        return self.fetch_labels(self.dispatch_labels(prepared, masks))
 
 
 def make_engine(model: torch.nn.Module, num_cls: int = 4, patch: int = 80,

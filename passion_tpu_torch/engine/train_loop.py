@@ -368,8 +368,9 @@ def fit(model: nn.Module, train_loader, cfg, modal_num=None, writer=None,
     main = world is None or world.is_main
     init_model(model, cfg.seed).to(device)
     if cfg.resume and cfg.use_pretrain:
-        ckpt.load_pretrained_params(cfg.resume, model)
-        logging.info("load ok")
+        taken = ckpt.load_pretrained_params(cfg.resume, model)
+        logging.info("loaded %d of %d tensors from %s", len(taken),
+                     len(model.state_dict()), cfg.resume)
 
     optimizer = make_optimizer(model.parameters(), cfg.weight_decay)
     start_epoch = 0

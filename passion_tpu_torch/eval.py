@@ -8,10 +8,13 @@ with Dice WT/TC/ET(+postpro) and HD95, writing per-case CSV rows to
       --datapath . --savepath outputs/eval
 
 `--resume` takes a port checkpoint (`torch.save(model.state_dict())`, or
-a training checkpoint of `python -m passion_tpu_torch.train`) or an .npz
-of the JAX package's flattened params (README, "PyTorch/CUDA port").
-`--data_parallel N` splits each case's windows over N ranks, one process
-per card (parallel/world.py; rank 0 writes the CSV).
+a training checkpoint of `python -m passion_tpu_torch.train`), a
+checkpoint of the reference's PyTorch code (`model_last.pth`) or an .npz
+of the JAX package's flattened params (README, "PyTorch/CUDA port"), and
+loads it strictly. Cases are read by a `PrefetchLoader` thread while the
+card sweeps the one before. `--data_parallel N` splits each case's windows
+over N ranks, one process per card (parallel/world.py; rank 0 writes the
+CSV).
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import os
 
 from passion_tpu_torch import resolve_device
 from passion_tpu_torch.config import parse_config
-from passion_tpu_torch.data.datasets import (TEST_TRANSFORMS, BratsTest,
-                                             CaseLoader)
+from passion_tpu_torch.data.datasets import TEST_TRANSFORMS, BratsTest
+from passion_tpu_torch.data.loader import PrefetchLoader
 from passion_tpu_torch.engine.checkpoint import load_weights
 from passion_tpu_torch.engine.evaluator import run_test_sweep
 from passion_tpu_torch.engine.sliding_window import make_engine
@@ -52,17 +55,18 @@ def eval_rank(world, cfg):
 
     model = get_model(cfg.model, num_cls=cfg.num_cls, mask_type=cfg.mask_type,
                       patch_size=cfg.patch_size, **cfg.model_kwargs)
-    model.load_state_dict(load_weights(cfg.resume, cfg.model), strict=True)
+    model.load_state_dict(load_weights(cfg.resume, model), strict=True)
     logging.info("loaded %s", cfg.resume)
 
     test_set = BratsTest(TEST_TRANSFORMS, root=cfg.dataset_path,
                          test_file="test.txt")
+    loader = PrefetchLoader(test_set, batch_size=1, shuffle=False,
+                            num_threads=1)
     engine = make_engine(model, cfg.num_cls, cfg.patch_size,
                          window_batch=cfg.window_batch, device=device,
                          world=world)
     csv_name = os.path.join(cfg.savepath, f"{cfg.model}.csv")
-    avg_dice, avg_hd95, _ = run_test_sweep(CaseLoader(test_set), engine,
-                                           csv_name=csv_name)
+    avg_dice, avg_hd95, _ = run_test_sweep(loader, engine, csv_name=csv_name)
     return avg_dice, avg_hd95
 
 

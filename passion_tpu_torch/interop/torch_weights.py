@@ -48,7 +48,13 @@ def load_torch_checkpoint(path) -> dict[str, torch.Tensor]:
     tensor on the CPU}, with DataParallel's 'module.' prefix stripped. The
     upstream files hold only `epoch`, `state_dict` and `optim_dict`, which
     `weights_only` loading accepts."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return _state_dict(torch.load(path, map_location="cpu",
+                                  weights_only=True))
+
+
+def _state_dict(blob) -> dict[str, torch.Tensor]:
+    """The float32 state_dict of a loaded reference checkpoint (or of a
+    bare state_dict), 'module.' stripped."""
     sd = blob.get("state_dict", blob)
     return {k.removeprefix("module."): v.detach().to(torch.float32)
             for k, v in sd.items()}
@@ -255,3 +261,24 @@ def m2ftrans_params_from_torch(sd, depth: int = 3) -> dict[str, torch.Tensor]:
 def rfnet_params_from_torch(sd) -> dict[str, torch.Tensor]:
     """Reference rfnet.Model state_dict -> the port RFNet's."""
     return _from_table(sd, rfnet_table())
+
+
+# each backbone's table by the port's class name, at the transformer depth
+# the model was built with
+_TABLES = {
+    "RFNet": lambda m: rfnet_table(),
+    "MMFormer": lambda m: mmformer_table(
+        len(m.fuse_path.multimodal_transformer.layers)),
+    "M2FTrans": lambda m: m2ftrans_table(len(m.fuse_path.trans_bottle.layers)),
+}
+
+
+def params_from_torch(blob, model) -> dict[str, torch.Tensor]:
+    """A loaded reference checkpoint (or its bare state_dict) -> the
+    state_dict of `model`, one of the port's backbones: a model of cut
+    depth takes the checkpoint's first transformer layers."""
+    table = _TABLES.get(type(model).__name__)
+    if table is None:
+        raise ValueError(f"no reference checkpoint converter for "
+                         f"{type(model).__name__}")
+    return _from_table(_state_dict(blob), table(model))

@@ -24,6 +24,7 @@ from passion_tpu_torch import metrics as tmetrics
 from passion_tpu_torch.data.datasets import TEST_TRANSFORMS, BratsTest, \
     CaseLoader
 from passion_tpu_torch.data.synth import make_case, make_synthetic_dataset
+from passion_tpu_torch.engine import evaluator as tev
 from passion_tpu_torch.engine.evaluator import run_test_sweep
 from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
 from passion_tpu_torch.interop.jax_weights import mmformer_from_jax_params
@@ -107,6 +108,128 @@ def test_eval_entry_point(dataset, tmp_path):
     scores = np.float64([r for r in got[1:] if len(r) == 8])
     assert scores.shape == (30, 8) and np.isfinite(scores).all()
     assert (out / "idt_eval.txt").is_file()
+
+
+def test_eval_cli_reads_cases_in_a_prefetch_thread(dataset, tmp_path,
+                                                   monkeypatch):
+    """The eval CLI loads its test cases through a `PrefetchLoader` thread,
+    one case a batch, in the list's order (JAX eval.py:52-53)."""
+    made = []
+
+    class Recording(port_eval.PrefetchLoader):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append((kw, []))
+
+        def __iter__(self):
+            for batch in super().__iter__():
+                made[-1][1].append(list(batch["name"]))
+                yield batch
+
+    monkeypatch.setattr(port_eval, "PrefetchLoader", Recording)
+    model = init_model(get_model("mmformer", patch_size=PATCH,
+                                 basic_dims=4), seed=1)
+    ckpt = str(tmp_path / "m.pt")
+    torch.save(model.state_dict(), ckpt)
+    port_eval.main(["--resume", ckpt, "--dataroot", dataset, "--datapath",
+                    ".", "--savepath", str(tmp_path / "out"), "--patch_size",
+                    str(PATCH), "--basic_dims", "4", "--device", "cpu"])
+    (kw, names), = made
+    assert kw == dict(batch_size=1, shuffle=False, num_threads=1)
+    assert names == [[n] for n in
+                     BratsTest(TEST_TRANSFORMS, root=dataset).names]
+    assert len(names) == 2
+
+
+def _cases(n, log, shape=(6, 5, 4)):
+    """A loader of n one-case batches; case i's volume is all i."""
+    for i in range(n):
+        log.append(("load", i))
+        yield dict(x=np.full((1,) + shape + (4,), i, np.float32),
+                   target=np.zeros((1,) + shape, np.int64), name=[f"c{i}"])
+
+
+class _RecordingSweep:
+    """A sweep engine that logs when each case is dispatched and fetched;
+    every label volume is empty."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def prepare(self, x):
+        return int(x.flat[0]), x.shape[:3]
+
+    def dispatch_labels(self, prepared, masks):
+        self.log.append(("dispatch", prepared[0]))
+        return prepared, len(masks)
+
+    def fetch_labels(self, pending):
+        (i, shape), n = pending
+        self.log.append(("fetch", i))
+        return [np.zeros(shape, np.uint8)] * n
+
+
+def test_sweep_dispatches_the_next_case_before_fetching():
+    """Case i + 1 is loaded and its device work queued before case i's
+    labels are fetched (JAX evaluator.py:199-209)."""
+    log = []
+    run_test_sweep(_cases(4, log), _RecordingSweep(log))
+    order = [e for e in log if e[0] != "load"]
+    assert order == [("dispatch", 0), ("dispatch", 1), ("fetch", 0),
+                     ("dispatch", 2), ("fetch", 1), ("dispatch", 3),
+                     ("fetch", 2), ("fetch", 3)]
+    assert log.index(("load", 1)) < log.index(("fetch", 0))
+
+
+class _GatedPool:
+    """A stand-in for the HD95 thread pool whose jobs wait until their
+    result is read: jobs submitted and not yet read are the backlog the
+    evaluator holds, with their label volumes."""
+
+    def __init__(self, max_workers=None):
+        self.submitted, self.read = 0, 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args):
+        self.submitted += 1
+        pool = self
+
+        class Job:
+            def result(self):
+                pool.read += 1
+                return fn(*args)
+
+        return Job()
+
+
+def test_hd95_backlog_stays_within_two_cases(monkeypatch):
+    """After each case at most 2 x 15 HD95 jobs wait (JAX evaluator.py:
+    196-197), and every one is read by the end."""
+    pools = []
+
+    def make_pool(max_workers=None):
+        pools.append(_GatedPool(max_workers))
+        return pools[-1]
+
+    monkeypatch.setattr(tev, "ThreadPoolExecutor", make_pool)
+    backlog, log = [], []
+
+    def loader():
+        for batch in _cases(6, log):
+            if pools:
+                backlog.append(pools[0].submitted - pools[0].read)
+            yield batch
+
+    _, _, per_mask = run_test_sweep(loader(), _RecordingSweep(log))
+    (pool,) = pools
+    assert pool.submitted == pool.read == 6 * 15
+    assert backlog == [0, 0, 15, 30, 30, 30]
+    assert len(per_mask) == 15
 
 
 def test_eval_requires_resume(tmp_path):

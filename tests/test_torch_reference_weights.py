@@ -18,7 +18,11 @@ from the port model's), with values from `default_rng` at scale 0.3. Then:
   (d) `load_torch_checkpoint` gives the JAX loader's arrays for a saved
       `{epoch, state_dict with "module.", optim_dict}` and a bare
       state_dict;
-  (e) a missing upstream key raises, naming it.
+  (e) a missing upstream key raises, naming it;
+  (f) `--use_pretrain`'s `load_pretrained_params` takes every port tensor
+      of such a file (at the model's own depth, one read of the file) and
+      equals the strict load; a checkpoint that matches nothing raises;
+  (g) `python -m passion_tpu_torch.eval --resume` reads the file strictly.
 """
 
 import jax
@@ -31,9 +35,16 @@ from passion_tpu.interop import torch_weights as jtw
 from passion_tpu.masks import MASK_ARRAY
 from passion_tpu.models import get_model as jax_get_model
 from passion_tpu.models import init_params_host
+from passion_tpu_torch import eval as port_eval
+from passion_tpu_torch.data.datasets import (TEST_TRANSFORMS, BratsTest,
+                                             CaseLoader)
+from passion_tpu_torch.data.synth import make_synthetic_dataset
+from passion_tpu_torch.engine import checkpoint as ckpt
+from passion_tpu_torch.engine.evaluator import run_test_sweep
+from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
 from passion_tpu_torch.interop import jax_weights
 from passion_tpu_torch.interop import torch_weights as ttw
-from passion_tpu_torch.models import get_model
+from passion_tpu_torch.models import get_model, init_model
 
 torch.set_num_threads(2)
 BACKBONES = {
@@ -157,6 +168,101 @@ def test_checkpoint_loader_matches_jax(case, tmp_path, wrapped):
     again = PORT[name](got, **BACKBONES[name][2])
     for k, v in port_sd.items():
         torch.testing.assert_close(again[k], v, rtol=0, atol=0, msg=k)
+
+
+def _save_upstream(sd, path):
+    """`sd` as the reference's train.py saves it (DataParallel keys)."""
+    torch.save({"epoch": 0, "state_dict": {"module." + k: v
+                                           for k, v in sd.items()},
+                "optim_dict": {}}, path)
+
+
+def test_use_pretrain_takes_every_tensor(case, tmp_path):
+    """`--use_pretrain` on a reference checkpoint: `load_pretrained_params`
+    converts it at the model's own depth and takes every port tensor,
+    leaving the model equal to the strict load."""
+    name, sd, _, _, tm, _, _ = case
+    patch, kw, _ = BACKBONES[name]
+    path = str(tmp_path / "model_last.pth")
+    _save_upstream(sd, path)
+    model = init_model(get_model(name, mask_type="idt", patch_size=patch,
+                                 **kw), seed=5)
+    taken = ckpt.load_pretrained_params(path, model)
+    assert taken == sorted(model.state_dict())
+    want = tm.state_dict()
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)
+
+
+def test_reference_checkpoint_is_read_once(case, tmp_path, monkeypatch):
+    """`load_weights` converts the blob it has loaded, through the table
+    that `params_from_torch` picks by the model's class: one read of the
+    file, and the per-backbone converter's tensors."""
+    name, sd, _, _, _, port_sd, _ = case
+    patch, kw, _ = BACKBONES[name]
+    path = str(tmp_path / "model_last.pth")
+    _save_upstream(sd, path)
+    reads, load = [], torch.load
+    monkeypatch.setattr(torch, "load",
+                        lambda f, *a, **k: reads.append(f) or load(f, *a, **k))
+    got = ckpt.load_weights(path, get_model(name, mask_type="idt",
+                                            patch_size=patch, **kw))
+    assert reads == [path]
+    assert set(got) == set(port_sd)
+    for k, v in port_sd.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+
+
+def test_params_from_torch_refuses_a_model_without_a_table():
+    with pytest.raises(ValueError, match="Linear"):
+        ttw.params_from_torch({}, torch.nn.Linear(2, 2))
+
+
+@pytest.mark.parametrize("wrapped", [True, False])
+def test_use_pretrain_refuses_a_checkpoint_it_cannot_use(tmp_path, wrapped):
+    """A checkpoint that shares no key and shape with the model raises,
+    naming the file, instead of leaving the seed's weights in place."""
+    model = init_model(get_model("rfnet", patch_size=16, basic_dims=4))
+    held = {"encoders.e1_c1.conv.weight": torch.zeros(3),  # wrong shape
+            "other.weight": torch.zeros(2)}  # not the model's
+    path = str(tmp_path / "other.pt")
+    ckpt.save_checkpoint(path, {"epoch": 0, "model": held, "optimizer": {}}
+                         if wrapped else held)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with pytest.raises(ValueError, match="other.pt"):
+        ckpt.load_pretrained_params(path, model)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k])
+
+
+@pytest.fixture(scope="module")
+def eval_data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("upstream_eval")
+    make_synthetic_dataset(str(root), n_cases=3, shape=(24, 20, 18), seed=2)
+    return str(root)
+
+
+def test_eval_cli_reads_an_upstream_checkpoint(case, tmp_path, eval_data):
+    """`python -m passion_tpu_torch.eval --resume model_last.pth` loads a
+    reference checkpoint strictly: its CSV equals the sweep of the model
+    loaded by hand from the converter."""
+    name, sd, _, _, tm, _, _ = case
+    patch, kw, _ = BACKBONES[name]
+    path = str(tmp_path / "model_last.pth")
+    _save_upstream(sd, path)
+    out = tmp_path / "out"
+    flags = [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+    port_eval.main(["--model", name, "--resume", path, "--dataroot",
+                    eval_data, "--datapath", ".", "--savepath", str(out),
+                    "--patch_size", str(patch), "--device", "cpu", *flags])
+    ref = str(tmp_path / "ref.csv")
+    run_test_sweep(CaseLoader(BratsTest(TEST_TRANSFORMS, root=eval_data)),
+                   SlidingWindowSweep(tm, 4, patch, device="cpu"),
+                   csv_name=ref)
+    with open(out / f"{name}.csv", "rb") as a, open(ref, "rb") as b:
+        got = a.read()
+        assert got == b.read()
+    assert got.count(b"\n") == 1 + 15 * 2  # header + 15 x (name, 1 case)
 
 
 def test_missing_upstream_key_raises(case):
