@@ -20,16 +20,20 @@ Phases (each raises on failure; any failure exits non-zero):
      fuse / sweep times and peak memory;
   4b. profile (`passion_tpu_torch.profile`): torch.profiler over one
      encode and one fuse pass of the same case, after the timed sweeps:
-     device busy share and kernel time by name;
-  5. entry point: `passion_tpu_torch.eval.main` on 2 synthetic 240x240x155
-     cases, timed end to end as `bench --eval_cli` times it (loading,
+     device busy share and kernel time by name, beside CUDA events around
+     the same call; the kernel table's sum must agree with the chrome
+     trace within 1% and fill 0.9 of the time between the events;
+  5. entry point: `passion_tpu_torch.eval.main` on 1 synthetic 240x240x155
+     case, timed end to end as `bench --eval_cli` times it (loading,
      staging, sweeps, Dice, HD95, CSV): mask-cases/s beside phase 4's
      engine rate;
-  6. kernel timing at the largest main-path shape, beside the bandwidth
-     bound, the plain version and one PyTorch library call, each the
-     median of launches queued behind a device-side wait and timed one by
-     one (`kernel_ms`); the timed outputs are held against the plain
-     version;
+  6. kernel timing at the largest main-path shape, beside the bound (the
+     bytes the wrapper hands `roofline.ByteCounter` over the card's HBM
+     rate, or its float32 operations over the card's float32 rate: the
+     table `bench.PEAKS`), the plain version and one PyTorch library
+     call, each the median of launches queued behind a device-side wait
+     and timed one by one (`kernel_ms`); the timed outputs are held
+     against the plain version;
   10, 11. phases 4, 4b and 5 for RFNet (10, 10b, 10c) and M2FTrans (11,
      11b, 11c) at their published widths: each sweep's K1/K2 launches,
      every distinct norm input held against the plain version, the window
@@ -102,10 +106,17 @@ Phases (each raises on failure; any failure exits non-zero):
 
   19. `python -m passion_tpu_torch.bench` (mmFormer: sweep, train, single
      and loader at a few reps) in a process of its own: every rate finite
-     and positive, `mfu_sweep` and `mfu_train` in (0, 1), one window's
-     forward FLOPs beside bench.py's XLA count of the TPU program; then
-     `python -m passion_tpu_torch.profile fuse --model rfnet`: its trace
-     file and kernel table.
+     and positive, `mfu_sweep` and `mfu_train` in (0, 1), the `bytes_*`
+     positive, `roofline_sweep` and `roofline_train` in (0, 1.05] with
+     their `bound_*`, one window's forward FLOPs beside bench.py's XLA
+     count of the TPU program; then `python -m passion_tpu_torch.profile
+     fuse --model rfnet`: its trace file and kernel table;
+  20. `python -m passion_tpu_torch.roofline sweep --model rfnet` and
+     `roofline train --model m2ftrans` (each backbone has a row across
+     19-20), every program's share in (0, 105]% with its bound; then a
+     small mmFormer (patch 32, basic_dims 4) counted on the card through
+     K1-K4 and on the CPU through the plain versions: one encode, one fuse
+     pass and one train step, the bytes and FLOPs equal op by op.
 
 The kernels' JSON lists each kernel's launches on every path
 (`launches_by_path`: one sweep and the timed train steps of each
@@ -141,17 +152,25 @@ VOLUME = (240, 240, 155)  # one BraTS case
 WINDOWS = 75  # windows of 80^3 in VOLUME: one chunk at the auto batch
 # phase 5: synthetic 240x240x155 cases through the eval CLI (its HD95 takes
 # about 45 s a case on the host; `bench --eval_cli` times 4)
-CLI_CASES = 2
+CLI_CASES = 1
 # phase 19's bench: the modes and reps it runs (a few of each)
 BENCH_ARGS = ("--sweep", "--train", "--single", "--loader", "--reps", "2",
               "--train_reps", "2", "--train_steps", "5", "--single_reps", "2",
               "--loader_cases", "4", "--loader_iters", "20")
+# phases 4b, 10b, 11b: the least share of the time between CUDA events
+# around an encode or a fuse pass that its trace's kernels must fill (the
+# card is busy for 0.95-0.99 of it)
+MIN_TRACED = 0.9
+# phase 20: the roofline runs beside phase 19's mmFormer bench (a few reps)
+ROOFLINE_RUNS = (("sweep", "rfnet", "--reps", "1"),
+                 ("train", "m2ftrans", "--train_reps", "2", "--train_steps",
+                  "5"))
+# phase 20's small mmFormer (tests/test_sweep_engine.py's widths)
+SMALL = dict(basic_dims=4, trans_dim=32, mlp_dim=64, heads=4)
 XLA_WINDOW_FLOPS = 71.33e9  # bench.py:49, the canonical TPU program's count
 # cycles of torch.cuda._sleep per second: at least the SM clock of an H100
 # (1.98 GHz at most), so a wait lasts at least as long as asked
 SLEEP_CYCLES_PER_S = 2.0e9
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 OPS_PER_ELEMENT = 4  # K1: sub, add, fma (2); K2: sub, mul, compare, mul
 # K3: sub, mul, round-compare, select-mul, add, fma; K4: those less the
 # sums, plus sub, fma, mul
@@ -220,6 +239,21 @@ def kernel_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def kernel_bound(call, n_ops: float, peaks: dict) -> tuple[float, str]:
+    """(ms, by) of a hand kernel's bound: the bytes its wrapper hands a
+    `roofline.ByteCounter` (each input read once, each output written
+    once) over the card's HBM rate, or its `n_ops` float32 operations over
+    the card's float32 rate, whichever takes longer (`roofline.floor_s`,
+    the programs' floors' formula)."""
+    from passion_tpu_torch import roofline
+
+    nbytes = roofline.count(call)["bytes"]
+    t_comp, t_mem, bound = roofline.floor_s(n_ops, nbytes, peaks["fp32"],
+                                            peaks["hbm"])
+    return max(t_comp, t_mem) * 1e3, ("bytes" if bound == "mem"
+                                      else "operations")
 
 
 def reset_counts(fn) -> None:
@@ -465,19 +499,28 @@ def phase_profile(torch, engine, prepared, card, name):
     each: host-clock wall time, summed kernel time and their ratio (the
     device's busy share; the kernels run on one stream, so they do not
     overlap), the share of K1 + K2 and the kernels that take the most
-    device time (`passion_tpu_torch.profile`). Tracing is on only here and
-    in 7b, so no other phase pays for it."""
+    device time (`passion_tpu_torch.profile`, which raises if the kernel
+    table and the chrome trace disagree by more than 1%). The kernels must
+    also fill MIN_TRACED of the time between CUDA events around the call:
+    these programs keep the card busy, so a trace that lost kernels reads
+    less. Tracing is on only here and in 7b, so no other phase pays for
+    it."""
     from passion_tpu_torch import profile
     from passion_tpu_torch.masks import MASK_ARRAY
 
+    def traced(prog, call):
+        t = profile.report_trace(profile.trace(
+            call, os.path.join(WORK, f"trace_{name}_{prog}.json")),
+            f"{name} {prog}", card)
+        if t["busy_ms"] < MIN_TRACED * t["event_ms"]:
+            raise AssertionError(
+                f"{name} {prog}: the trace holds {t['busy_ms']:.3f} ms of "
+                f"kernels for {t['event_ms']:.3f} ms between CUDA events")
+
     mask = np.asarray(MASK_ARRAY[-1])
-    profile.report_trace(*profile.trace(lambda: engine.encode_case(prepared)),
-                         f"{name} encode", card)
+    traced("encode", lambda: engine.encode_case(prepared))
     fts = engine.encode_case(prepared)
-    torch.cuda.synchronize()
-    profile.report_trace(*profile.trace(
-        lambda: engine._labels_device(prepared, fts, mask)), f"{name} fuse",
-        card)
+    traced("fuse", lambda: engine._labels_device(prepared, fts, mask))
     del fts
 
 
@@ -532,16 +575,15 @@ def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
             f"mask-cases/s")
 
 
-def phase_timing(torch, fn, err):
+def phase_timing(torch, fn, err, peaks):
     """Phase 6: K1 and K2 at the hoisted scale-1 shape of the sweep; the
     timed outputs are held against the plain version's (errors folded into
-    `err`)."""
+    `err`); their bounds from the card's `peaks` (`kernel_bound`)."""
     import torch.nn.functional as F
 
     shape = (WINDOWS, 32, 80, 80, 80)
     x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
     n = x.numel()
-    rows = shape[0] * shape[1]
     stats = fn.norm_stats(x)
     k1 = kernel_ms(lambda: fn.norm_stats(x), 10)
     k2 = kernel_ms(lambda: fn.norm_apply(x, stats), 10)
@@ -552,18 +594,13 @@ def phase_timing(torch, fn, err):
                         fn.norm_apply_plain(x, stats))
     err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
     log(f"  timed outputs vs plain: stats err {e1:.3g}, output err {e2:.3g}")
-    xv = x.view(rows, -1)
+    xv = x.view(shape[0] * shape[1], -1)
     lib1 = kernel_ms(lambda: torch.var_mean(xv, dim=1, correction=0), 10)
     pair = kernel_ms(lambda: F.leaky_relu(F.instance_norm(x), 0.2), 5)
-    # bound: the larger of the bytes (each input read once, each output
-    # written once) over the memory rate and the float32 operations over
-    # the card's float32 rate
-    ops_ms = OPS_PER_ELEMENT * n / FP32_OPS_PER_S * 1e3
-    bytes1 = (2 * n + 8 * rows) / HBM_BYTES_PER_S * 1e3
-    bytes2 = (2 * 2 * n + 8 * rows) / HBM_BYTES_PER_S * 1e3
-    b1, b2 = max(bytes1, ops_ms), max(bytes2, ops_ms)
-    by1 = "bytes" if bytes1 >= ops_ms else "operations"
-    by2 = "bytes" if bytes2 >= ops_ms else "operations"
+    b1, by1 = kernel_bound(lambda: fn.norm_stats(x), OPS_PER_ELEMENT * n,
+                           peaks)
+    b2, by2 = kernel_bound(lambda: fn.norm_apply(x, stats),
+                           OPS_PER_ELEMENT * n, peaks)
     log(f"  {shape} bf16 ({n / 1e9:.3f} G elements), medians of launches "
         f"queued behind a device-side wait: K1 {k1:.4f} ms (bound "
         f"{b1:.4f}), K2 {k2:.4f} ms (bound {b2:.4f}); plain {p1:.4f} / "
@@ -721,7 +758,8 @@ def phase_train_profile(torch, run, card, name, top: int = 30) -> dict:
     train step (`passion_tpu_torch.profile`)."""
     from passion_tpu_torch import profile
 
-    return profile.report_trace(*profile.trace(run["step"]),
+    path = os.path.join(WORK, f"trace_{name.replace(' ', '_')}_step.json")
+    return profile.report_trace(profile.trace(run["step"], path),
                                 f"{name} train step", card, top=top)
 
 
@@ -852,17 +890,17 @@ def phase_train_entry(torch, fn, name, resume):
         f"{first}")
 
 
-def phase_backward_timing(torch, fn, err) -> dict:
+def phase_backward_timing(torch, fn, err, peaks) -> dict:
     """Phase 9: K3 and K4 at the train step's largest norm input, the
     five-lane scale-1 tensor; the timed outputs are held against the plain
-    version (errors folded into `err`)."""
+    version (errors folded into `err`); their bounds as in phase 6."""
     import torch.nn.functional as F
 
     shape = (5, 32, 80, 80, 80)
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    n, rows = x.numel(), shape[0] * shape[1]
+    n = x.numel()
     st = fn.norm_stats(x)
     b = fn.norm_bwd_stats(x, g, st)
     k3 = kernel_ms(lambda: fn.norm_bwd_stats(x, g, st), 10)
@@ -878,12 +916,10 @@ def phase_backward_timing(torch, fn, err) -> dict:
     lib = kernel_ms(lambda: torch.autograd.grad(y, xr, g, retain_graph=True),
                     5)
     del y
-    ops_ms = OPS_PER_ELEMENT_BWD * n / FP32_OPS_PER_S * 1e3
-    bytes3 = (2 * 2 * n + 16 * rows) / HBM_BYTES_PER_S * 1e3
-    bytes4 = (3 * 2 * n + 16 * rows) / HBM_BYTES_PER_S * 1e3
-    b3, b4 = max(bytes3, ops_ms), max(bytes4, ops_ms)
-    by3 = "bytes" if bytes3 >= ops_ms else "operations"
-    by4 = "bytes" if bytes4 >= ops_ms else "operations"
+    b3, by3 = kernel_bound(lambda: fn.norm_bwd_stats(x, g, st),
+                           OPS_PER_ELEMENT_BWD * n, peaks)
+    b4, by4 = kernel_bound(lambda: fn.norm_bwd_apply(x, g, st, b),
+                           OPS_PER_ELEMENT_BWD * n, peaks)
     log(f"  {shape} bf16 ({n / 1e6:.2f} M elements), medians of launches "
         f"queued behind a device-side wait: K3 {k3:.4f} ms (bound "
         f"{b3:.4f}), K4 {k4:.4f} ms (bound {b4:.4f}); plain {p3:.4f} / "
@@ -1359,8 +1395,9 @@ def _module(*args: str) -> dict:
 def phase_bench() -> None:
     """Phase 19: `python -m passion_tpu_torch.bench` (mmFormer; sweep,
     train, single and loader at a few reps, BENCH_ARGS): every rate finite
-    and positive, each `mfu_*` in (0, 1); one window's forward FLOPs beside
-    the TPU program's XLA count (a count, not a speed). Then
+    and positive, each `mfu_*` in (0, 1), every `bytes_*` positive, each
+    `roofline_*` share in (0, 1.05] with its `bound_*`; one window's forward
+    FLOPs beside the TPU program's XLA count (a count, not a speed). Then
     `python -m passion_tpu_torch.profile fuse --model rfnet`: its trace file
     and kernel table."""
     t0 = time.perf_counter()
@@ -1375,10 +1412,24 @@ def phase_bench() -> None:
     for k in ("mfu_sweep", "mfu_train"):
         if row[k] is None or not 0 < row[k] < 1:
             raise AssertionError(f"bench {k} = {row[k]}")
+    for k in ("bytes_sweep", "bytes_sweep_encode", "bytes_sweep_fuse",
+              "bytes_train_step"):
+        if not row[k] > 0:
+            raise AssertionError(f"bench {k} = {row[k]}")
+    for k in ("sweep", "train"):
+        share, bound = row[f"roofline_{k}"], row[f"bound_{k}"]
+        if share is None or not 0 < share <= 1.05 or bound not in (
+                "mem", "comp", "mixed"):
+            raise AssertionError(f"bench roofline_{k} = {share}, bound_{k} "
+                                 f"= {bound}")
     if row["metric"] != "brats_eval_sweep_throughput" or not row["chip"]:
         raise AssertionError(f"bench line: {row['metric']}, {row['chip']}")
-    log(f"  {row['value']} mask-cases/s (mfu {row['mfu_sweep']}), "
-        f"{row['train_steps_per_sec']} steps/s (mfu {row['mfu_train']}), "
+    log(f"  {row['value']} mask-cases/s (mfu {row['mfu_sweep']}; "
+        f"{row['bytes_sweep'] / 1e9:.2f} GB, {row['roofline_sweep']} of "
+        f"the {row['bound_sweep']} floor), {row['train_steps_per_sec']} "
+        f"steps/s (mfu {row['mfu_train']}; "
+        f"{row['bytes_train_step'] / 1e9:.2f} GB, {row['roofline_train']} "
+        f"of the {row['bound_train']} floor), "
         f"{row['single_cases_per_sec']} single-mask cases/s, "
         f"{row['aug_crops_per_sec']} aug-crops/s; FLOPs of one 80^3 "
         f"window's forward {row['flops_window_forward'] / 1e9:.2f} G (the "
@@ -1400,6 +1451,102 @@ def phase_bench() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def small_counts(torch, device: str) -> dict:
+    """roofline.count of a small mmFormer (SMALL widths, patch 32, bf16)
+    on `device`: the encode of a (48, 40, 36) case's 8 windows, one fuse
+    pass and one train step (after one untimed step), each by shapes
+    alone."""
+    from passion_tpu_torch import roofline
+    from passion_tpu_torch.engine.schedule import (make_optimizer,
+                                                   set_learning_rate)
+    from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
+    from passion_tpu_torch.engine.train_loop import make_train_step
+    from passion_tpu_torch.masks import MASK_ARRAY
+    from passion_tpu_torch.models import get_model, init_model
+
+    p = 32
+    model = init_model(get_model("mmformer", mask_type="idt", patch_size=p,
+                                 **SMALL), seed=0)
+    rng = np.random.default_rng(0)
+    engine = SlidingWindowSweep(model, 4, p, device=device)
+    out = roofline.sweep_counts(engine, engine.prepare(
+        rng.standard_normal((48, 40, 36, 4)).astype(np.float32)))
+    model = model.to(device)
+    opt = make_optimizer(model.parameters(), 1e-4)
+    set_learning_rate(opt, 2e-4)
+    step = make_train_step(model, opt, use_passion=True, with_dropout=True)
+    lab = rng.integers(0, 4, (1, p, p, p))
+    batch = {"x": torch.from_numpy(rng.standard_normal(
+                 (1, 4, p, p, p)).astype(np.float32)).to(device),
+             "target": torch.from_numpy(np.moveaxis(np.eye(
+                 4, dtype=np.float32)[lab], -1, 1).copy()).to(device),
+             "mask": torch.from_numpy(np.asarray(MASK_ARRAY[[9]])).to(
+                 device)}
+    ones = torch.ones(4, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    step(batch, ones, ones, 4.0, gen)
+    out["train"] = roofline.count(lambda: step(batch, ones, ones, 4.0, gen))
+    return out
+
+
+def phase_roofline(torch, fn) -> None:
+    """Phase 20: `python -m passion_tpu_torch.roofline` for the backbones
+    phase 19's bench left out (ROOFLINE_RUNS: RFNet's sweep, M2FTrans's
+    step), each in a process of its own: every program's share of its
+    binding floor in (0, 105]% with its bound. Then `small_counts` on the
+    card, through K1-K4, and on the CPU, through the plain versions: the
+    two counts of each program must be equal, op by op."""
+    for program, name, *extra in ROOFLINE_RUNS:
+        t0 = time.perf_counter()
+        out = _module("passion_tpu_torch.roofline", program, "--model",
+                      name, *extra)
+        rows = {k: v for k, v in out.items()
+                if isinstance(v, dict) and "pct_of_roofline" in v}
+        for k, r in rows.items():
+            if r["pct_of_roofline"] is None or not 0 < r[
+                    "pct_of_roofline"] <= 105 or r["bound"] not in (
+                        "mem", "comp"):
+                raise AssertionError(f"roofline {program} {name} {k}: {r}")
+            log(f"  [{out['chip']}] {name} {k}: {r['tflop']:.4f} TFLOP, "
+                f"{r['gb']:.4f} GB, t_comp {r['t_comp'] * 1e3:.3f} ms, "
+                f"t_mem {r['t_mem'] * 1e3:.3f} ms, bound {r['bound']}, "
+                f"measured {r['t_meas'] * 1e3:.3f} ms (best "
+                f"{r['t_best'] * 1e3:.3f}): {r['pct_of_roofline']:.2f}% of "
+                f"the floor")
+        if program == "sweep":
+            log(f"  {name} sweep at roofline "
+                f"{out['sweep_roofline_mask_cases_per_s']:.3f} mask-cases/s; "
+                f"measured serially "
+                f"{out['sweep_measured_serial_mask_cases_per_s']:.4f}")
+        log(f"  roofline {program} --model {name}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reset_counts(fn)
+    card = small_counts(torch, "cuda")
+    launched = counts(fn)
+    reset_counts(fn)
+    host = small_counts(torch, "cpu")
+    if min(launched.values()) <= 0 or max(counts(fn).values()) != 0:
+        raise AssertionError(f"K1-K4 launches: card {launched}, CPU "
+                             f"{counts(fn)}")
+    for prog in ("encode", "fuse", "train"):
+        c, h = card[prog], host[prog]
+        if (c["bytes"], c["flops"], c["by_op"]) != (h["bytes"], h["flops"],
+                                                    h["by_op"]):
+            diff = {k: (c["by_op"].get(k), h["by_op"].get(k))
+                    for k in set(c["by_op"]) | set(h["by_op"])
+                    if c["by_op"].get(k) != h["by_op"].get(k)}
+            raise AssertionError(
+                f"small mmFormer {prog}: card {c['bytes']} B, "
+                f"{c['flops']} FLOP; CPU {h['bytes']} B, {h['flops']} FLOP; "
+                f"ops that differ (card, CPU): {diff}")
+        log(f"  small mmFormer {prog}: {c['bytes']} B, {c['flops']} FLOP on "
+            f"the card and on the CPU; hand kernels "
+            f"{ {k: v for k, v in c['by_op'].items() if k[0] == 'K'} } B")
+    log(f"  K1-K4 launches in the card's counts {launched}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "passion_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repo "
@@ -1417,10 +1564,15 @@ def main() -> int:
     from passion_tpu_torch import bench
 
     card = bench.card_line()
-    log(f"== 1. device: {torch.cuda.get_device_name(0)} x "
-        f"{torch.cuda.device_count()}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
+    kind = torch.cuda.get_device_name(0)
+    log(f"== 1. device: {kind} x {torch.cuda.device_count()}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(card)
+    peaks = bench.PEAKS.get(kind)
+    if peaks is None:
+        peaks = bench.PEAKS["NVIDIA H100 80GB HBM3"]
+        log(f"  no peaks for {kind!r}: the kernels' bounds take the H100 "
+            f"SXM data sheet's")
 
     from passion_tpu_torch.ops import _build
     from passion_tpu_torch.ops import fused_norm as fn
@@ -1465,7 +1617,7 @@ def main() -> int:
                           rate if name == "mmformer" else None)
         if name == "mmformer":
             log("== 6. kernel timing")
-            t = phase_timing(torch, fn, errs)
+            t = phase_timing(torch, fn, errs, peaks)
         del model
         torch.cuda.empty_cache()
 
@@ -1492,7 +1644,7 @@ def main() -> int:
         phase_train_entry(torch, fn, name, resume=name == "mmformer")
         if name == "mmformer":
             log("== 9. backward kernel timing")
-            tb = phase_backward_timing(torch, fn, errs)
+            tb = phase_backward_timing(torch, fn, errs, peaks)
 
     log("== 14. single-mask engine (SlidingWindowInference), mmFormer, full "
         "width, bf16")
@@ -1524,6 +1676,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== 19. python -m passion_tpu_torch.bench and .profile")
     phase_bench()
+    log("== 20. python -m passion_tpu_torch.roofline; byte counts on the "
+        "card and on the CPU")
+    phase_roofline(torch, fn)
     for k in KERNELS:
         log(f"  {k} launches by path: {by_path[k]}")
 

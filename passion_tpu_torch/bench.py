@@ -31,12 +31,16 @@ seed-0 weights:
 A rep is timed on the host clock between two `torch.cuda.synchronize()`
 calls. The JSON line carries bench.py's field names: `value` is the rate
 over the mean rep time, `value_best` over the best, `reps_*` each rep's
-rate and `std_*` their spread. `mfu_*` is the work's FLOPs (`flops.py`, the
-port's own programs, counted once on an untimed run) times the rate over
-the card's dense bf16 peak (`PEAK_BF16`); null, with a line on stderr,
-for a card not in that table. `chip` is the card's name and power limit as
-nvidia-smi gives them. Without CUDA the device modes exit non-zero before
-anything is timed.
+rate and `std_*` their spread. `flops_*` and `bytes_*` are the work's FLOPs
+and bytes (`roofline.count`: the port's own programs, counted once on an
+untimed run after the timed ones). `mfu_*` is the FLOPs times the rate over
+the card's dense bf16 peak; `roofline_*` the share of its binding floor
+the work reaches at the mean rate (the sweep's floor: the encode's plus 15
+fuse passes'), `bound_*` which floor binds ("mem", "comp"; "mixed" for a
+sweep whose programs differ). All three are null, with a line on stderr,
+for a card missing from `PEAKS`. `chip` is the card's name and power limit
+as nvidia-smi gives them. Without CUDA the device modes exit non-zero
+before anything is timed.
 """
 
 from __future__ import annotations
@@ -55,9 +59,11 @@ import torch
 VOLUME = (240, 240, 155)
 PATCH = 80
 EVAL_CASES = 4  # --eval_cli: synthetic cases through the eval CLI
-# dense bf16 tensor-core FLOP/s by torch.cuda.get_device_name (the data
-# sheet's rate without sparsity)
-PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989.4e12}
+# the card's peaks by torch.cuda.get_device_name, from its data sheet:
+# dense bf16 tensor-core FLOP/s (without sparsity), float32 FLOP/s outside
+# the tensor cores, HBM bytes/s
+PEAKS = {"NVIDIA H100 80GB HBM3": dict(bf16=989.4e12, fp32=67e12,
+                                       hbm=3.35e12)}
 
 
 def card_line() -> str:
@@ -66,6 +72,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def peaks_of(kind: str) -> dict | None:
+    """The peaks of card `kind`, or None with a line on stderr."""
+    peaks = PEAKS.get(kind)
+    if peaks is None:
+        print(f"no peaks for {kind!r}: mfu_*, roofline_* and bound_* are "
+              f"null", file=sys.stderr)
+    return peaks
 
 
 def volume() -> np.ndarray:
@@ -141,12 +156,12 @@ def _rates(work: float, times: list[float]) -> dict:
                 std=round(float(np.std(reps)), 4))
 
 
-def _mfu(flops_per_s: float, peak):
-    return None if peak is None else flops_per_s / peak
+def _mfu(flops_per_s: float, peaks):
+    return None if peaks is None else flops_per_s / peaks["bf16"]
 
 
-def bench_sweep(name: str, reps: int, window_batch=None, peak=None) -> dict:
-    from passion_tpu_torch import flops
+def bench_sweep(name: str, reps: int, window_batch=None, peaks=None) -> dict:
+    from passion_tpu_torch import flops, roofline
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.masks import MASK_ARRAY
     from passion_tpu_torch.models import get_model, init_model
@@ -159,9 +174,6 @@ def bench_sweep(name: str, reps: int, window_batch=None, peak=None) -> dict:
     out = engine.sweep_labels(prepared, masks)  # cuDNN set-up, untimed
     if len(out) != 15 or out[0].shape != VOLUME:
         raise AssertionError(f"{len(out)} label volumes of {out[0].shape}")
-    counted = flops.sweep_flops(engine, prepared, len(masks))
-    counted["window_forward"] = flops.window_forward_flops(
-        engine.model, PATCH)
     r = _rates(len(masks), _reps(lambda: engine.sweep_labels(prepared,
                                                              masks), reps))
     # one more sweep, its encode and each fuse pass between CUDA events
@@ -174,22 +186,45 @@ def bench_sweep(name: str, reps: int, window_batch=None, peak=None) -> dict:
         e.record()
     torch.cuda.synchronize()
     fuse = [a.elapsed_time(b) for a, b in zip(ev[1:], ev[2:])]
-    return dict(rate=r, flops=counted, encode_ms=ev[0].elapsed_time(ev[1]),
-                fuse_ms=float(np.mean(fuse)),
+    encode_ms, fuse_ms = ev[0].elapsed_time(ev[1]), float(np.mean(fuse))
+    del fts
+    counts = roofline.sweep_counts(engine, prepared)  # untimed
+    n = len(masks)
+    counted = dict(encode=counts["encode"]["flops"],
+                   fuse=counts["fuse"]["flops"],
+                   window_forward=flops.window_forward_flops(engine.model,
+                                                             PATCH))
+    counted["sweep"] = counted["encode"] + n * counted["fuse"]
+    moved = dict(encode=counts["encode"]["bytes"],
+                 fuse=counts["fuse"]["bytes"])
+    moved["sweep"] = moved["encode"] + n * moved["fuse"]
+    rows = dict(encode=roofline.program_row(counts["encode"], peaks,
+                                            encode_ms / 1e3,
+                                            encode_ms / 1e3),
+                fuse_labels=roofline.program_row(counts["fuse"], peaks,
+                                                 fuse_ms / 1e3,
+                                                 min(fuse) / 1e3))
+    floor, bound = roofline.sweep_floor(rows["encode"], rows["fuse_labels"],
+                                        n)
+    return dict(rate=r, flops=counted, bytes=moved, rows=rows,
+                by_op=dict(encode=counts["encode"]["by_op"],
+                           fuse_labels=counts["fuse"]["by_op"]),
+                encode_ms=encode_ms, fuse_ms=fuse_ms,
                 window_batch=prepared["window_batch"],
-                mfu=_mfu(counted["sweep"] * r["mean"] / len(masks), peak))
+                mfu=_mfu(counted["sweep"] * r["mean"] / n, peaks),
+                roofline=None if floor is None else floor * r["mean"] / n,
+                bound=bound)
 
 
 def bench_train(name: str, warmup: int, reps: int, steps: int,
-                peak=None) -> dict:
-    from passion_tpu_torch import flops
+                peaks=None) -> dict:
+    from passion_tpu_torch import roofline
 
     one = train_step_fn(name)
     for _ in range(warmup):
         m = one()
     if not np.isfinite(m["loss"].item()):
         raise AssertionError(f"non-finite loss {m['loss'].item()}")
-    step_flops = flops.count(one)
 
     def run():
         for _ in range(steps):
@@ -197,8 +232,14 @@ def bench_train(name: str, warmup: int, reps: int, steps: int,
         return m
 
     r = _rates(steps, _reps(run, reps))
-    return dict(rate=r, flops=step_flops,
-                mfu=_mfu(step_flops * r["mean"], peak))
+    counts = roofline.count(one)  # untimed
+    row = roofline.program_row(counts, peaks, 1 / r["mean"], 1 / r["best"])
+    share = row["pct_of_roofline"]
+    return dict(rate=r, flops=counts["flops"], bytes=counts["bytes"],
+                by_op=counts["by_op"], row=row,
+                mfu=_mfu(counts["flops"] * r["mean"], peaks),
+                roofline=None if share is None else share / 100,
+                bound=row["bound"])
 
 
 def bench_single(name: str, reps: int) -> dict:
@@ -297,6 +338,10 @@ def bench_eval_cli(name: str, n_cases: int = EVAL_CASES, out=None) -> dict:
                 launches=[w.launches for w in fused_norm.WRAPPERS])
 
 
+def _round(share):
+    return None if share is None else round(share, 5)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     for mode in ("sweep", "train", "single", "loader", "eval_cli"):
@@ -336,10 +381,7 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         kind = torch.cuda.get_device_name(0)
-        peak = PEAK_BF16.get(kind)
-        if peak is None:
-            print(f"bench: no dense bf16 peak for {kind!r}: mfu_* is null",
-                  file=sys.stderr)
+        peaks = peaks_of(kind)
         row.update(chip=card_line(), device=kind)
     title = {"mmformer": "mmFormer", "rfnet": "RFNet",
              "m2ftrans": "M2FTrans"}[args.model]
@@ -352,23 +394,27 @@ def main(argv=None) -> int:
 
     if args.sweep:
         s = bench_sweep(args.model, args.reps, args.window_batch or None,
-                        peak)
+                        peaks)
         headline("brats_eval_sweep_throughput", s["rate"],
                  f"mask-cases/sec/chip ({title} 15-mask sliding-window "
                  f"sweep, 240x240x155, {s['window_batch']}-window chunks "
                  f"of 80^3)")
         row.update(
-            mfu_sweep=None if s["mfu"] is None else round(s["mfu"], 5),
+            mfu_sweep=_round(s["mfu"]),
             reps_sweep=s["rate"]["reps"], std_sweep=s["rate"]["std"],
             sweep_encode_ms=round(s["encode_ms"], 3),
             sweep_fuse_ms=round(s["fuse_ms"], 3),
             flops_sweep=s["flops"]["sweep"],
             flops_sweep_encode=s["flops"]["encode"],
             flops_sweep_fuse=s["flops"]["fuse"],
-            flops_window_forward=s["flops"]["window_forward"])
+            flops_window_forward=s["flops"]["window_forward"],
+            bytes_sweep=s["bytes"]["sweep"],
+            bytes_sweep_encode=s["bytes"]["encode"],
+            bytes_sweep_fuse=s["bytes"]["fuse"],
+            roofline_sweep=_round(s["roofline"]), bound_sweep=s["bound"])
     if args.train:
         t = bench_train(args.model, args.train_warmup, args.train_reps,
-                        args.train_steps, peak)
+                        args.train_steps, peaks)
         unit = (f"steps/sec/chip ({title} 80^3 batch=1, use_passion, bf16 "
                 f"over float32, AdamW-AMSGrad)")
         headline("passion_train_step", t["rate"], unit)
@@ -376,9 +422,10 @@ def main(argv=None) -> int:
             train_steps_per_sec=round(t["rate"]["mean"], 4),
             train_steps_per_sec_best=round(t["rate"]["best"], 4),
             train_unit=unit,
-            mfu_train=None if t["mfu"] is None else round(t["mfu"], 5),
+            mfu_train=_round(t["mfu"]),
             reps_train=t["rate"]["reps"], std_train=t["rate"]["std"],
-            flops_train_step=t["flops"])
+            flops_train_step=t["flops"], bytes_train_step=t["bytes"],
+            roofline_train=_round(t["roofline"]), bound_train=t["bound"])
     if args.single:
         g = bench_single(args.model, args.single_reps)
         headline("brats_sliding_window_inference", g["rate"],

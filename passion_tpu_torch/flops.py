@@ -44,13 +44,19 @@ class _NoModules:
         return False
 
 
+def counter() -> FlopCounterMode:
+    """A FlopCounterMode without its module tracker, to enter around the
+    call it counts."""
+    c = FlopCounterMode(display=False)
+    c.mod_tracker = _NoModules()
+    return c
+
+
 def count(fn) -> int:
     """FLOPs of the aten ops that one call of `fn` runs."""
-    counter = FlopCounterMode(display=False)
-    counter.mod_tracker = _NoModules()
-    with counter:
+    with counter() as c:
         fn()
-    return int(counter.get_total_flops())
+    return int(c.get_total_flops())
 
 
 def window_forward_flops(model: torch.nn.Module, patch: int) -> int:

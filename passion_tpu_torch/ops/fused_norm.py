@@ -28,7 +28,9 @@ statistics over groups of g adjacent channels (the JAX package's
 space-to-depth contract, tests/test_ops.py). A wrapper given a CPU tensor
 takes the plain PyTorch version below (which follows `_inl_jnp` and its
 autodiff); given a CUDA tensor it launches its kernel or raises. Each
-wrapper counts its launches in `.launches`.
+wrapper counts its launches in `.launches`. While a byte counter
+(`roofline.ByteCounter`) is active, each wrapper hands it its kernel's
+bytes (inputs read once, outputs written once) and runs unseen by it.
 """
 
 from __future__ import annotations
@@ -106,6 +108,15 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _stats_bytes(x: torch.Tensor, rows: int) -> int:
+    """Bytes of one (rows, 2) statistics tensor of x."""
+    return 2 * rows * _acc(x.dtype).itemsize
+
+
+# the active `roofline.ByteCounter`, which the wrappers hand their bytes to
+byte_counter = None
+
+
 # --- plain PyTorch version (CPU path, and the reference on the card) ------
 
 def norm_stats_plain(x: torch.Tensor, eps: float = 1e-5,
@@ -173,6 +184,10 @@ def norm_stats(x: torch.Tensor, eps: float = 1e-5,
                phase_group: int = 1) -> torch.Tensor:
     """K1: (rows, 2) float32 [mean, inv] per (batch, channel group)."""
     rows, n = _rows(x, phase_group)
+    if byte_counter is not None:  # x read, the statistics written
+        return byte_counter.hand_kernel(
+            "K1 norm_stats", x.nbytes + _stats_bytes(x, rows), norm_stats, x,
+            eps, phase_group)
     if x.device.type == "cpu":
         return norm_stats_plain(x, eps, phase_group)
     code = _kernel_dtype(x)
@@ -198,6 +213,10 @@ def norm_apply(x: torch.Tensor, stats: torch.Tensor,
     """K2: LeakyReLU((x - mean) * inv) in x's dtype."""
     rows, n = _rows(x, phase_group)
     _check_stats("stats", stats, x, rows)
+    if byte_counter is not None:  # x and the statistics read, y written
+        return byte_counter.hand_kernel(
+            "K2 norm_apply", 2 * x.nbytes + _stats_bytes(x, rows), norm_apply,
+            x, stats, negative_slope, phase_group)
     if x.device.type == "cpu":
         return norm_apply_plain(x, stats, negative_slope, phase_group)
     code = _kernel_dtype(x)
@@ -223,6 +242,10 @@ def norm_bwd_stats(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     rows, n = _rows(x, phase_group)
     _check_grad(g, x)
     _check_stats("stats", stats, x, rows)
+    if byte_counter is not None:  # x, g, stats read, the row sums written
+        return byte_counter.hand_kernel(
+            "K3 norm_bwd_stats", 2 * x.nbytes + 2 * _stats_bytes(x, rows),
+            norm_bwd_stats, x, g, stats, negative_slope, phase_group)
     if x.device.type == "cpu":
         return norm_bwd_stats_plain(x, g, stats, negative_slope, phase_group)
     code = _kernel_dtype(x)
@@ -252,6 +275,10 @@ def norm_bwd_apply(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     _check_grad(g, x)
     _check_stats("stats", stats, x, rows)
     _check_stats("bstats", bstats, x, rows)
+    if byte_counter is not None:  # x, g, stats, row sums read, dx written
+        return byte_counter.hand_kernel(
+            "K4 norm_bwd_apply", 3 * x.nbytes + 2 * _stats_bytes(x, rows),
+            norm_bwd_apply, x, g, stats, bstats, negative_slope, phase_group)
     if x.device.type == "cpu":
         return norm_bwd_apply_plain(x, g, stats, bstats, negative_slope,
                                     phase_group)

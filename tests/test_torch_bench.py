@@ -150,12 +150,28 @@ def test_mode_flags_combine():
     args = bench.parse_args(["--single", "--loader", "--model", "rfnet"])
     assert (args.sweep, args.train, args.single, args.loader,
             args.model) == (False, False, True, True, "rfnet")
-    assert bench.PEAK_BF16["NVIDIA H100 80GB HBM3"] == 989.4e12
+    assert bench.PEAKS["NVIDIA H100 80GB HBM3"]["bf16"] == 989.4e12
 
 
 def _event(key, ms, count, device=DeviceType.CUDA, **kw):
     return SimpleNamespace(key=key, device_type=device,
                            self_device_time_total=ms * 1e3, count=count, **kw)
+
+
+def _chrome(tmp_path, kernels):
+    """A chrome trace of `kernels` (ms each) on the device, beside host
+    events and a range on the device timeline; returns its path."""
+    events = [{"ph": "X", "cat": "kernel", "name": f"k{i}", "ts": 0,
+               "dur": ms * 1e3} for i, ms in enumerate(kernels)]
+    events += [{"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": 0, "dur": 1},
+               {"ph": "X", "cat": "gpu_user_annotation", "name": "step",
+                "ts": 0, "dur": 5e3},
+               {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 0,
+                "dur": 500}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    return str(path)
 
 
 def test_kernel_table_skips_ranges_and_host_ops(capsys):
@@ -174,10 +190,33 @@ def test_kernel_table_skips_ranges_and_host_ops(capsys):
     assert profile.kernel_times(prof) == {
         "void stats_partial_kernel<bf16>": (1.0, 10),
         "void apply_kernel<bf16>": (2.0, 10), "cudnn_conv_kernel": (6.0, 3)}
-    t = profile.report_trace(prof, 18.0, "stub", "card", top=2)
+    t = profile.report_trace(dict(prof=prof, wall_ms=18.0, event_ms=17.0,
+                                  chrome_ms=9.0), "stub", "card", top=2)
     assert (t["busy_ms"], t["norm_ms"], t["calls"]) == (9.0, 3.0, 23)
+    assert (t["chrome_ms"], t["event_ms"]) == (9.0, 17.0)
     assert [k for k, _ in t["top"]] == ["cudnn_conv_kernel",
                                         "void apply_kernel<bf16>"]
     lines = capsys.readouterr().out.splitlines()
     assert "busy share 0.500" in lines[0] and "23 kernel launches" in lines[0]
     assert len(lines) == 3
+
+
+@pytest.mark.parametrize("kernels,agrees", [
+    ([1.0, 2.0, 5.5], True),  # 9.0 ms with the memset
+    ([1.0, 2.0, 5.55], True),  # 0.6% more than the kernel table
+    ([1.0, 2.0, 5.7], False),  # 2.2% more
+])
+def test_trace_checked_against_its_chrome_trace(tmp_path, kernels, agrees):
+    """A chrome trace's device time counts kernels, copies and memsets,
+    not host events or ranges; a trace is reported only if its kernel
+    table agrees with that time within 1%."""
+    ms = profile.chrome_device_ms(_chrome(tmp_path, kernels))
+    assert ms == pytest.approx(sum(kernels) + 0.5)
+    prof = SimpleNamespace(key_averages=lambda: [
+        _event("k1", 1.0, 1), _event("k2", 2.0, 1), _event("k3", 6.0, 1)])
+    t = dict(prof=prof, wall_ms=10.0, event_ms=9.5, chrome_ms=ms)
+    if agrees:
+        assert profile.report_trace(t, "stub", "card")["busy_ms"] == 9.0
+    else:
+        with pytest.raises(AssertionError, match="disagree"):
+            profile.report_trace(t, "stub", "card")

@@ -285,3 +285,39 @@ def test_val_step_kernel_path_matches_plain_norm(card, monkeypatch):
                         tfn.instance_norm_lrelu_plain)
     torch.testing.assert_close(got, step(x, mask, target, 4.0), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", range(4))
+def test_byte_counts_on_the_card_equal_the_cpus(card, kernel):
+    """Under `roofline.ByteCounter` each wrapper launches its kernel once
+    and counts its own operands, as its plain version does on the CPU."""
+    from passion_tpu_torch import roofline
+
+    x = (torch.randn((2, 32, 20, 20, 20), generator=card, device="cuda")
+         * 3 + 1).to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=card, device="cuda").to(x.dtype)
+    st = tfn.norm_stats_plain(x)
+    bst = tfn.norm_bwd_stats_plain(x, g, st)
+    args = [(x,), (x, st), (x, g, st), (x, g, st, bst)][kernel]
+    wrapper = tfn.WRAPPERS[kernel]
+    before = wrapper.launches
+    on_card = roofline.count(lambda: wrapper(*args))
+    host = [t.cpu() for t in args]
+    on_cpu = roofline.count(lambda: wrapper(*host))
+    assert wrapper.launches == before + 1
+    assert on_card == on_cpu and on_card["bytes"] > x.nbytes
+
+
+def test_trace_reports_every_kernel_of_the_call(card, tmp_path):
+    """`profile.trace` of a call on the card: its kernel table agrees with
+    its chrome trace and holds the call's three launches, not the warm-up
+    step's kernels."""
+    from passion_tpu_torch import profile
+
+    x = torch.randn((4, 32, 40, 40, 40), generator=card, device="cuda")
+    t = profile.trace(lambda: tfn.instance_norm_lrelu(x),
+                      str(tmp_path / "t.json"))
+    got = profile.report_trace(t, "norm", "card")
+    assert got["calls"] == 3  # K1's two launches, K2
+    assert got["busy_ms"] == pytest.approx(got["chrome_ms"], rel=0.01)
+    assert 0 < got["busy_ms"] <= t["event_ms"] * 1.05
