@@ -85,7 +85,15 @@ Phases (each raises on failure; any failure exits non-zero):
      the data-parallel step's launches, and one traced step of each with
      the kernels whose counts differ; the sharded sweep's labels against
      phase 4's; and the train CLI with `--data_parallel 1` (and 2 where
-     two cards are visible).
+     two cards are visible);
+  16b. `python -m passion_tpu_torch.multichip` in a process of its own,
+     its ranks spawned and joined over NCCL: with one visible card
+     `--cards 1 --models mmformer --phases step sweep` (the float32
+     data-parallel step against one process, the sharded sweep against one
+     card; phase 16 times the bf16 steps at world size 1, phases 5, 8 and
+     16 run the CLIs),
+     with two or more `--cards min(count, 4)` for every backbone and
+     phase; every check must pass.
 
   Reference checkpoints and preprocessing:
 
@@ -121,7 +129,9 @@ Phases (each raises on failure; any failure exits non-zero):
 The kernels' JSON lists each kernel's launches on every path
 (`launches_by_path`: one sweep and the timed train steps of each
 backbone; phase 14's single-mask run, phase 15's 15-mask validation
-batch, phase 16's timed data-parallel steps and sharded sweep, phase 17's
+batch, phase 16's timed data-parallel steps and sharded sweep, rank 0's
+float32 step and sharded sweep in phase 16b (`multichip_step:{name}`,
+`multichip_sweep:{name}`, counted in that rank's process), phase 17's
 run of each backbone under imported weights, `import:{name}`);
 `launches` is mmFormer's, the first main path.
 TF32 stays at torch's default (as `passion_tpu_torch.eval` and `.train`
@@ -1083,7 +1093,7 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
     """Phase 16: data parallelism at world size 1 over NCCL, in a process
     group of this process. Returns the launches of the timed bf16 steps
     and of the sharded sweep."""
-    from passion_tpu_torch import bench
+    from passion_tpu_torch import bench, multichip
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.masks import MASK_ARRAY
     from passion_tpu_torch.models import get_model, init_model
@@ -1108,18 +1118,13 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
         a, b = res["one"], res["dp"]
         if abs(a["loss"] - b["loss"]) > 1e-5 * abs(a["loss"]):
             raise AssertionError(f"losses {a['loss']} vs {b['loss']}")
-        num = den = worst = 0.0
-        for n, g in a["grads"].items():
-            d = (b["grads"][n] - g).norm().item()
-            num, den = num + d * d, den + g.norm().item() ** 2
-            if g.norm().item() > 1e-6:
-                worst = max(worst, d / g.norm().item())
-        if worst > 2e-2 or math.sqrt(num / den) > 5e-3:
-            raise AssertionError(f"gradients: worst {worst}, global "
-                                 f"{math.sqrt(num / den)}")
+        err = multichip.grad_errors(a["grads"], b["grads"])
+        if err["over"] or err["global_rel"] > multichip.GRAD_GLOBAL:
+            raise AssertionError(f"gradients: global {err['global_rel']}, "
+                                 f"over their bound {err['over']}")
         log(f"  float32 step, data-parallel (world 1, NCCL) vs one process: "
             f"loss {b['loss']:.6f} vs {a['loss']:.6f}; gradients rel L2 "
-            f"global {math.sqrt(num / den):.3g}, worst {worst:.3g}")
+            f"global {err['global_rel']:.3g}, worst {err['worst'][0]:.3g}")
         del res, a, b
 
         # the bf16 step as fit runs it (dropout on), one process and
@@ -1231,6 +1236,41 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
             f"and the final 15-mask CSV written by rank 0; "
             f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+def phase_multichip(torch) -> dict:
+    """Phase 16b: `python -m passion_tpu_torch.multichip` through its spawn
+    path (module docstring). Returns rank 0's K1-K4 launches of the float32
+    step and of the sharded sweep by `multichip_{step,sweep}:{name}`."""
+    count = torch.cuda.device_count()
+    n = min(count, 4)
+    args = ["--cards", str(n), "--out", os.path.join(WORK, "multichip")]
+    if n == 1:
+        args += ["--models", "mmformer", "--phases", "step", "sweep"]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "passion_tpu_torch.multichip",
+                          *args], cwd=REPO, capture_output=True, text=True,
+                         timeout=300 if n == 1 else 3000)
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        if line.startswith(("check ", "  rank ")):
+            log(f"  {line.strip()}")
+    if out.returncode:
+        raise AssertionError(f"multichip {' '.join(args)} exited "
+                             f"{out.returncode}: {out.stdout[-2000:]} "
+                             f"{out.stderr[-2000:]}")
+    row = json.loads(lines[-1])
+    if not row["ok"] or row["failed"] or row["cards"] != [n]:
+        raise AssertionError(f"multichip: {row['failed']}")
+    launches = {}
+    for name, by_n in row["results"].items():
+        for phase in ("step", "sweep"):
+            launches[f"multichip_{phase}:{name}"] = by_n[str(n)][phase][
+                "launches"][0]
+    log(f"  multichip: {count} card(s) visible, world size {n}, "
+        f"{row['models']}; {row['checks']} checks passed; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def upstream_state_dict(torch, table, port_sd, rng, scale=0.02):
@@ -1659,11 +1699,16 @@ def main() -> int:
     dp = phase_data_parallel(torch, fn, card, mmformer_step_ms, sweep_labels)
     del sweep_labels
     torch.cuda.empty_cache()
+    log(f"== 16b. python -m passion_tpu_torch.multichip, "
+        f"{min(torch.cuda.device_count(), 4)} card(s)")
+    multi = phase_multichip(torch)
     for k in KERNELS:
         by_path[k]["single_mask:mmformer"] = single[k]
         by_path[k]["val_15_masks:mmformer"] = val[k]
         by_path[k]["train_steps_dp:mmformer"] = dp["train"][k]
         by_path[k]["sweep_dp:mmformer"] = dp["sweep"][k]
+        for path, launches in multi.items():
+            by_path[k][path] = launches[k]
     log("== 17. reference checkpoint import (upstream .pth), published "
         "widths; mmFormer's 15-mask sweep under it")
     for name in BACKBONES:

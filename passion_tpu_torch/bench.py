@@ -105,8 +105,9 @@ def train_batch() -> dict:
 
 
 def train_setup(name, compute_dtype=torch.bfloat16, with_dropout=None,
-                world=None):
-    """The published-width model `name` (seed 0, idt), its optimizer at lr
+                world=None, device="cuda", patch=PATCH, **model_kw):
+    """The model `name` (seed 0, idt; published width unless `model_kw`
+    overrides it) on `world.device`, else `device`, its optimizer at lr
     2e-4 and the train step (data-parallel over `world` if given), as
     `engine.train_loop.fit` builds them; dropout on but for RFNet unless
     `with_dropout` says otherwise."""
@@ -115,7 +116,9 @@ def train_setup(name, compute_dtype=torch.bfloat16, with_dropout=None,
     from passion_tpu_torch.engine.train_loop import make_train_step
     from passion_tpu_torch.models import get_model, init_model
 
-    model = init_model(get_model(name, mask_type="idt"), seed=0).cuda()
+    model = init_model(get_model(name, mask_type="idt", patch_size=patch,
+                                 **model_kw), seed=0)
+    model.to(world.device if world is not None else device)
     opt = make_optimizer(model.parameters(), 1e-4)
     set_learning_rate(opt, 2e-4)
     if with_dropout is None:

@@ -1,10 +1,11 @@
-"""Segmentation and distillation losses (copy of the `_bs` functions of
-`passion_tpu/losses.py:31-193`, channels-first).
+"""Segmentation and distillation losses (copy of `passion_tpu/losses.py`,
+channels-first).
 
-Every function returns per-sample (B, 1) losses so the train step can
-re-weight them per modality. Inputs are (B, C, H, W, Z) and are upcast to
-float32 at entry: the model may run in bf16, but sums over ~512k voxels in
-bf16 lose the low bits that the preference signal (dist) is made of.
+Every `_bs` function returns per-sample (B, 1) losses so the train step
+can re-weight them per modality. Inputs are (B, C, H, W, Z) and are upcast
+to float32 at entry: the model may run in bf16, but sums over ~512k voxels
+in bf16 lose the low bits that the preference signal (dist) is made of.
+The batch-mean forms at the end return scalars, as the reference's.
 `up_scale` upsamples probabilities trilinearly (align_corners=True) by that
 integer factor before the loss, as the reference's `nn.Upsample` on softmax
 outputs.
@@ -126,3 +127,56 @@ def prototype_passion_loss_bs(feature_s: torch.Tensor,
     proto_loss = (diff.square() * incl).sum(dim=(1, 2, 3, 4)) / denom
     dist = (diff.abs() * incl).sum(dim=(1, 2, 3, 4)) / denom
     return proto_loss[:, None], dist[:, None]
+
+
+# Batch-mean forms, kept for API parity with criterions.py:11-23, 40-57,
+# 79-90, 106-142 (`passion_tpu/losses.py:196-233`). The train step uses
+# only the per-sample forms above. As in the JAX package, `dice_loss` and
+# `softmax_weighted_loss` take their own sums over the batch and run in
+# the input's dtype.
+
+def dice_loss(output: torch.Tensor, target: torch.Tensor, num_cls: int = 4,
+              eps: float = 1e-7, up_scale: int = 1) -> torch.Tensor:
+    """Soft dice over the whole batch: each class's sums run over the
+    batch and the voxels together. output: probabilities."""
+    output = _maybe_upsample(output, up_scale)
+    target = target.to(output.dtype)
+    dims = (0,) + SPATIAL
+    num = (output * target).sum(dim=dims)  # (C,)
+    left = output.sum(dim=dims)
+    right = target.sum(dim=dims)
+    dice = (2.0 * num / (left + right + eps)).sum()
+    return 1.0 - dice / num_cls
+
+
+def softmax_weighted_loss(output: torch.Tensor, target: torch.Tensor,
+                          num_cls: int = 4,
+                          up_scale: int = 1) -> torch.Tensor:
+    """Class-frequency-weighted cross entropy, the mean over the batch and
+    the voxels of its per-voxel class sums. output: probabilities."""
+    output = _maybe_upsample(output, up_scale)
+    target = target.to(output.dtype)
+    cls_sum = target.sum(dim=SPATIAL)  # (B, C)
+    weighted = 1.0 - cls_sum / cls_sum.sum(dim=1, keepdim=True)
+    logp = torch.log(output.clamp(CLAMP_MIN, 1.0))
+    cross = -(weighted[:, :, None, None, None] * target * logp)
+    return cross.sum(dim=1).mean()
+
+
+def temp_kl_loss(logit_s: torch.Tensor, logit_t: torch.Tensor,
+                 target: torch.Tensor, num_cls: int = 4, temp: float = 1.0,
+                 up_scale: int = 1) -> torch.Tensor:
+    """The batch mean of `temp_kl_loss_bs`."""
+    return temp_kl_loss_bs(logit_s, logit_t, target, num_cls, temp,
+                           up_scale).mean()
+
+
+def prototype_passion_loss(feature_s: torch.Tensor, feature_t: torch.Tensor,
+                           target: torch.Tensor, logit_s: torch.Tensor,
+                           logit_t: torch.Tensor, num_cls: int = 4,
+                           temp: float = 1.0):
+    """The batch means of both outputs of `prototype_passion_loss_bs`:
+    (proto_loss, dist) scalars."""
+    proto, dist = prototype_passion_loss_bs(feature_s, feature_t, target,
+                                            logit_s, logit_t, num_cls, temp)
+    return proto.mean(), dist.mean()

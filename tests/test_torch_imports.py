@@ -44,7 +44,7 @@ def test_importing_the_port_loads_no_jax():
     assert "passion_tpu_torch.ops.fused_norm" in probe["imported"]
     for name in ("parallel.world", "losses_legacy", "data.samplers",
                  "interop.torch_weights", "data.preprocess", "bench",
-                 "profile", "flops"):
+                 "profile", "flops", "multichip"):
         assert f"passion_tpu_torch.{name}" in probe["imported"]
     assert [m for m in probe["modules"] if _forbidden(m)] == []
     assert "yaml" not in probe["modules"]  # the card's machine has none

@@ -2,7 +2,9 @@
 (channels-first here, channels-last there), float32 on the CPU, atol 1e-5:
 every per-sample `_bs` loss at up_scale 1, 2 and 4, bf16 inputs (the fp32
 upcast), a batch where a class is absent from one sample (the prototype
-loss's include flag) and one where no class is included (zeros)."""
+loss's include flag) and one where no class is included (zeros); the four
+batch-mean forms (passion_tpu/losses.py:201-233) at up_scale 1 and 2 and
+both prototype batches, scalars, at the same tolerance."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,3 +123,48 @@ def test_safe_norm_gradient_is_finite_at_zero():
                                             None, K)
     (g,) = torch.autograd.grad(proto.sum(), f)
     assert torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("up", [1, 2])
+def test_batch_mean_dice_and_wce_match_jax(up):
+    """Their own sums over the batch, not means of the `_bs` forms."""
+    rng = np.random.default_rng(30 + up)
+    p = _probs(rng)
+    t = _onehot(rng, S * up)
+    dice = tl.dice_loss(_cf(p), _cf(t), K, up_scale=up)
+    assert dice.shape == ()
+    _close(dice, jl.dice_loss(jnp.asarray(p), jnp.asarray(t), K,
+                              up_scale=up))
+    # the batch sum differs from the mean of the per-sample dice losses
+    assert abs(float(dice) - float(
+        tl.dice_loss_bs(_cf(p), _cf(t), K, up_scale=up).mean())) > 1e-6
+    wce = tl.softmax_weighted_loss(_cf(p), _cf(t), K, up_scale=up)
+    assert wce.shape == ()
+    _close(wce, jl.softmax_weighted_loss(jnp.asarray(p), jnp.asarray(t), K,
+                                         up_scale=up))
+
+
+@pytest.mark.parametrize("up", [1, 2])
+def test_batch_mean_temp_kl_matches_jax(up):
+    rng = np.random.default_rng(40 + up)
+    ls = (rng.standard_normal((B, S, S, S, K)) * 3).astype(np.float32)
+    lt = (rng.standard_normal((B, S, S, S, K)) * 3).astype(np.float32)
+    got = tl.temp_kl_loss(_cf(ls), _cf(lt), None, K, 4.0, up_scale=up)
+    assert got.shape == ()
+    _close(got, jl.temp_kl_loss(jnp.asarray(ls), jnp.asarray(lt), None, K,
+                                4.0, up_scale=up))
+
+
+@pytest.mark.parametrize("absent", [None, 2], ids=["all_classes",
+                                                    "class_absent"])
+def test_batch_mean_prototype_loss_matches_jax(absent):
+    rng = np.random.default_rng(50 if absent is None else 51)
+    fs = rng.standard_normal((B, S, S, S, C)).astype(np.float32)
+    ft = (fs + 0.3 * rng.standard_normal(fs.shape)).astype(np.float32)
+    t = _onehot(rng, absent=absent)
+    got = tl.prototype_passion_loss(_cf(fs), _cf(ft), _cf(t), None, None, K)
+    want = jl.prototype_passion_loss(jnp.asarray(fs), jnp.asarray(ft),
+                                     jnp.asarray(t), None, None, K)
+    for g, w in zip(got, want):
+        assert g.shape == () and float(g) > 0
+        _close(g, w)

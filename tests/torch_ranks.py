@@ -76,20 +76,22 @@ def stall_rank(world, out: str, seconds: float) -> None:
     time.sleep(seconds)
 
 
-def sweep_rank(world, out: str, spec: dict, masks) -> None:
-    """The sharded float32 sweep of the saved volume: labels and the
-    coverage-normalised probabilities of each mask."""
+def sweep_rank(world, out: str, spec: dict, masks, window_batches) -> None:
+    """The sharded float32 sweep of the saved volume at each window batch:
+    this rank's chunks and every mask's labels and coverage-normalised
+    probabilities, by window batch."""
     vol = np.load(os.path.join(out, "vol.npy"))
-    engine = SlidingWindowSweep(build_model(spec), 4, spec["patch"],
-                                window_batch=spec.get("window_batch"),
-                                compute_dtype=torch.float32, world=world)
-    prepared = engine.prepare(vol)
-    labels = engine.sweep_labels(prepared, masks)
-    fts = engine.encode_case(prepared)
-    wgt = torch.from_numpy(coverage_weight(prepared["eff"], prepared["eff"],
-                                           engine.patch))
-    probs = [engine.sum_masked(prepared, fts, m) / wgt for m in masks]
-    torch.save(dict(labels=labels, probs=probs,
-                    chunks=len(engine._rank_chunks(prepared)),
-                    window_batch=prepared["window_batch"]),
-               os.path.join(out, f"rank{world.rank}.pt"))
+    model = build_model(spec)
+    res = {}
+    for wb in window_batches:
+        engine = SlidingWindowSweep(model, 4, spec["patch"], window_batch=wb,
+                                    compute_dtype=torch.float32, world=world)
+        prepared = engine.prepare(vol)
+        labels = engine.sweep_labels(prepared, masks)
+        fts = engine.encode_case(prepared)
+        wgt = torch.from_numpy(coverage_weight(prepared["eff"],
+                                               prepared["eff"], engine.patch))
+        res[wb] = dict(labels=labels, chunks=[
+            len(c) for c in engine._rank_chunks(prepared)],
+            probs=[engine.sum_masked(prepared, fts, m) / wgt for m in masks])
+    torch.save(res, os.path.join(out, f"rank{world.rank}.pt"))
