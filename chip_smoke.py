@@ -23,10 +23,10 @@ Phases (each raises on failure; any failure exits non-zero):
      device busy share and kernel time by name, beside CUDA events around
      the same call; the kernel table's sum must agree with the chrome
      trace within 1% and fill 0.9 of the time between the events;
-  5. entry point: `passion_tpu_torch.eval.main` on 1 synthetic 240x240x155
-     case, timed end to end as `bench --eval_cli` times it (loading,
-     staging, sweeps, Dice, HD95, CSV): mask-cases/s beside phase 4's
-     engine rate;
+  5. entry point: `passion_tpu_torch.eval.main` on 2 synthetic 240x240x155
+     cases, timed end to end as `bench --eval_cli` times it (loading,
+     staging, sweeps, Dice and HD95 scored on the card, CSV): mask-cases/s
+     beside phase 4's engine rate; K5's launches in the run;
   6. kernel timing at the largest main-path shape, beside the bound (the
      bytes the wrapper hands `roofline.ByteCounter` over the card's HBM
      rate, or its float32 operations over the card's float32 rate: the
@@ -34,6 +34,14 @@ Phases (each raises on failure; any failure exits non-zero):
      call, each the median of launches queued behind a device-side wait
      and timed one by one (`kernel_ms`); the timed outputs are held
      against the plain version;
+  6b. K5, the distance transform of HD95 (`ops.edt.edt_sq`): against its
+     plain version at small shapes and at the main path's (phase 4's 15
+     label volumes, one target), and against scipy's
+     `distance_transform_edt` on a speckled and a clean 240x240x155
+     volume, exactly; `metrics.score_masks` on the 15 masks against
+     `dice_class4` (bit for bit) and `cal_hd95` (1e-9); K5's time at 15
+     volumes and at one beside its bound, the plain version's and scipy's
+     for one volume on the host;
   10, 11. phases 4, 4b and 5 for RFNet (10, 10b, 10c) and M2FTrans (11,
      11b, 11c) at their published widths: each sweep's K1/K2 launches,
      every distinct norm input held against the plain version, the window
@@ -133,7 +141,10 @@ batch, phase 16's timed data-parallel steps and sharded sweep, rank 0's
 float32 step and sharded sweep in phase 16b (`multichip_step:{name}`,
 `multichip_sweep:{name}`, counted in that rank's process), phase 17's
 run of each backbone under imported weights, `import:{name}`);
-`launches` is mmFormer's, the first main path.
+`launches` is mmFormer's, the first main path. K5's entry counts its
+launches in the three eval CLI runs (`eval_cli:{name}`; `launches` and
+`launches_per_case` are phase 5's) and adds its time at one volume beside
+scipy's (`scipy_ms_one_volume`) and the 15-mask scorer's.
 TF32 stays at torch's default (as `passion_tpu_torch.eval` and `.train`
 run) except around the float32 comparisons, where it is off.
 The last two lines are the kernels' JSON record and
@@ -160,9 +171,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")  # listed in .gitignore
 VOLUME = (240, 240, 155)  # one BraTS case
 WINDOWS = 75  # windows of 80^3 in VOLUME: one chunk at the auto batch
-# phase 5: synthetic 240x240x155 cases through the eval CLI (its HD95 takes
-# about 45 s a case on the host; `bench --eval_cli` times 4)
-CLI_CASES = 1
+# phase 5: synthetic 240x240x155 cases through the eval CLI (scored on the
+# card; two, so that the second case's sweep runs beside the first's
+# scoring; `bench --eval_cli` times 4)
+CLI_CASES = 2
 # phase 19's bench: the modes and reps it runs (a few of each)
 BENCH_ARGS = ("--sweep", "--train", "--single", "--loader", "--reps", "2",
               "--train_reps", "2", "--train_steps", "5", "--single_reps", "2",
@@ -202,6 +214,10 @@ BACKBONES = ("mmformer", "rfnet", "m2ftrans")
 TRAIN_STEPS = 5  # timed full-width train steps (after 2 untimed ones)
 DP_TURNS = 4  # phase 16: one, dp, dp, one timings of TRAIN_STEPS, repeated
 KERNELS = ("K1", "K2", "K3", "K4")
+# K5: the border test (seven label reads and compares), the two scans'
+# compare-selects, the two envelopes' multiply-adds and compares; counted
+# at the float32 rate (the guide's table has no int32 rate)
+K5_OPS_PER_VOXEL = 30
 
 
 def log(msg: str) -> None:
@@ -544,9 +560,11 @@ def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
     from passion_tpu_torch import bench
     from passion_tpu_torch import eval as port_eval
     from passion_tpu_torch.data.synth import make_synthetic_dataset
+    from passion_tpu_torch.ops import edt
 
     out = os.path.join(WORK, f"out_{name}")
     timed = engine_rate is not None
+    edt.edt_sq.launches = 0  # the CLI's scoring on the card (K5)
     if timed:
         n_cases = CLI_CASES
         run = bench.bench_eval_cli(name, n_cases, out=out)
@@ -562,6 +580,7 @@ def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
         port_eval.main(["--model", name, "--resume", ckpt, "--dataroot",
                         data, "--datapath", ".", "--savepath", out])
         launches = (fn.norm_stats.launches, fn.norm_apply.launches)
+    k5 = edt.edt_sq.launches
     with open(os.path.join(out, f"{name}.csv")) as f:
         rows = list(csv.reader(f))
     if rows[0][-1] != "ET HD95ETPro HD95" or len(rows) != 1 + 15 * (
@@ -573,16 +592,18 @@ def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
             not np.isfinite(scores).all():
         raise AssertionError(f"CSV: {len(names)} masks, scores "
                              f"{scores.shape}")
-    if min(launches) <= 0:
-        raise AssertionError(f"a kernel of the eval path never ran: "
-                             f"{launches}")
+    if min(launches) <= 0 or k5 <= 0:
+        raise AssertionError(f"a kernel of the eval path never ran: K1, K2 "
+                             f"{launches}, K5 {k5}")
     log(f"  {name} eval CSV: 15 mask sections x {n_cases} cases, finite "
-        f"scores; launches K1 {launches[0]}, K2 {launches[1]}")
+        f"scores; launches K1 {launches[0]}, K2 {launches[1]}, K5 {k5} "
+        f"(scored on the card)")
     if timed:
         log(f"  [{card}] eval CLI end to end: {n_cases} cases x 15 masks in "
             f"{run['seconds']:.3f} s -> {run['rate']:.4f} mask-cases/s; the "
             f"engine alone (phase 4) {[round(r, 4) for r in engine_rate]} "
             f"mask-cases/s")
+    return k5
 
 
 def phase_timing(torch, fn, err, peaks):
@@ -618,6 +639,121 @@ def phase_timing(torch, fn, err, peaks):
         f"F.leaky_relu {pair:.4f} ms against K1+K2 {k1 + k2:.4f} ms")
     return dict(k1=k1, k2=k2, p1=p1, p2=p2, lib1=lib1, pair=pair, b1=b1,
                 b2=b2, by1=by1, by2=by2)
+
+
+def phase_distance_transform(torch, peaks, labels) -> dict:
+    """Phase 6b: K5 (`ops.edt.edt_sq`) against its plain version at small
+    shapes and at the main path's (the 15 masks' labels of phase 4 and one
+    target, every region), exactly; against scipy's distance transform on
+    a speckled 240x240x155 volume (phase 4's full-mask labels) and a clean
+    one (`data.synth.make_case`), exactly (square roots of the same
+    integers); the device scorer (`metrics.score_masks`) on those 15
+    masks against `dice_class4` (bit for bit) and `cal_hd95` (1e-9, in 8
+    host threads). Times K5 at the 15-mask batch and at one volume beside
+    its bound and scipy's time for one volume."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scipy import ndimage
+
+    from passion_tpu_torch import metrics
+    from passion_tpu_torch.data.synth import make_case
+    from passion_tpu_torch.ops import edt
+
+    errs = []  # max abs difference of every comparison (all must be 0)
+
+    def held(x, classes, want=None):
+        got = edt.edt_sq(x, classes)
+        want = edt.edt_sq_plain(x, classes) if want is None else want
+        errs.append((got.long() - want.long()).abs().max().item())
+        if errs[-1]:
+            raise AssertionError(f"K5 differs from its plain version on "
+                                 f"{tuple(x.shape)} {classes}: max "
+                                 f"{errs[-1]}")
+
+    rng = np.random.default_rng(0)
+    for shape in ((3, 24, 20, 16), (2, 7, 1, 5), (2, 40, 300, 33)):
+        x = torch.from_numpy(rng.integers(0, 4, shape).astype(np.uint8))
+        for classes in metrics.REGIONS:
+            held(x.cuda(), classes, edt.edt_sq_plain(x, classes).cuda())
+    log("  small shapes (W 300: the 16-bit envelope): K5 equal to the plain "
+        "version on every region")
+
+    target = make_case(VOLUME, np.random.default_rng(1))[1]
+    footprint = ndimage.generate_binary_structure(3, 1)
+    scipy_s = []
+    for kind, lab in (("speckled", labels[-1]), ("clean", target)):
+        x = torch.from_numpy(np.ascontiguousarray(lab))[None].cuda()
+        for classes in metrics.REGIONS:
+            region = np.isin(lab, classes)
+            border = region ^ ndimage.binary_erosion(region, footprint, 1)
+            got = edt.edt_sq(x, classes)[0].cpu().numpy()
+            t0 = time.perf_counter()
+            want = ndimage.distance_transform_edt(~border,
+                                                  sampling=(1.0, 1.0, 1.0))
+            scipy_s.append(time.perf_counter() - t0)
+            errs.append(float(np.abs(np.sqrt(got.astype(np.float64))
+                                     - want).max()))
+            if errs[-1]:
+                raise AssertionError(f"K5 differs from scipy on the {kind} "
+                                     f"volume, region {classes}: max "
+                                     f"{errs[-1]}")
+    scipy_ms = float(np.median(scipy_s)) * 1e3
+    log(f"  {VOLUME} speckled and clean, every region: K5 equal to scipy's "
+        f"distance_transform_edt (its square roots); scipy "
+        f"{min(scipy_s):.3f}-{max(scipy_s):.3f} s a volume on the host")
+
+    batch = torch.from_numpy(np.stack(labels)).cuda()
+    one = torch.from_numpy(target)[None].cuda()
+    for x in (one, batch):
+        for classes in metrics.REGIONS:
+            held(x, classes)
+    log(f"  main-path shapes {tuple(one.shape)} and {tuple(batch.shape)}: "
+        f"K5 equal to the plain version on every region")
+
+    ms = kernel_ms(lambda: edt.edt_sq(batch, (1, 2, 3)), 10)
+    ms_one = kernel_ms(lambda: edt.edt_sq(one, (1, 2, 3)), 10)
+    plain_ms = kernel_ms(lambda: edt.edt_sq_plain(batch, (1, 2, 3)), 1, 0)
+
+    def bound(x):
+        from passion_tpu_torch import roofline
+
+        t_comp, t_mem, by = roofline.floor_s(
+            K5_OPS_PER_VOXEL * x.numel(), 5 * x.numel(), peaks["fp32"],
+            peaks["hbm"])
+        return max(t_comp, t_mem) * 1e3, "bytes" if by == "mem" else \
+            "operations"
+
+    (b, by), (b_one, _) = bound(batch), bound(one)
+    log(f"  K5 {tuple(batch.shape)}: {ms:.4f} ms (bound {b:.4f} ms, "
+        f"{by}); one volume {ms_one:.4f} ms (bound {b_one:.4f} ms) against "
+        f"scipy's {scipy_ms:.1f} ms on the host; plain version {plain_ms:.1f} "
+        f"ms")
+
+    tgt = torch.from_numpy(target).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dice, hd = metrics.score_masks(batch, tgt)
+    score_ms = (time.perf_counter() - t0) * 1e3
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        host_hd = list(pool.map(lambda lab: metrics.cal_hd95(lab, target),
+                                labels))
+    hd_err = 0.0
+    for m, lab in enumerate(labels):
+        _, want = metrics.dice_class4(lab[None], target[None])
+        if not np.array_equal(dice[m], want[0]):
+            raise AssertionError(f"mask {m}: Dice {dice[m]} on the card, "
+                                 f"{want[0]} on the host")
+        hd_err = max(hd_err, float(np.abs(hd[m] - np.asarray(
+            host_hd[m])).max()))
+    if hd_err > 1e-9:
+        raise AssertionError(f"HD95 on the card {hd_err} from cal_hd95")
+    log(f"  device scorer, 15 masks x {VOLUME} against one target: "
+        f"{score_ms:.1f} ms; Dice equal to dice_class4 bit for bit, HD95 "
+        f"within {hd_err:.3g} of cal_hd95 (HD95 of the full mask "
+        f"{hd[-1].round(4).tolist()})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                err=max(errs), ms_one=ms_one, bound_ms_one=b_one,
+                scipy_ms=scipy_ms, score_ms=score_ms)
 
 
 def _ulp_bf16(torch, v):
@@ -1634,6 +1770,7 @@ def main() -> int:
     errs = phase_kernels(torch, fn)
     errs.update(K3=0.0, K4=0.0)
     by_path = {k: {} for k in KERNELS}  # launches on each backbone's paths
+    k5_by_path = {}  # K5's launches in each eval CLI run
     title = {"mmformer": "mmFormer", "rfnet": "RFNet", "m2ftrans": "M2FTrans"}
     number = {"mmformer": ("4", "5"), "rfnet": ("10", "10c"),
               "m2ftrans": ("11", "11c")}
@@ -1653,11 +1790,14 @@ def main() -> int:
         del engine, prepared
         log(f"== {cli_no}. entry point: passion_tpu_torch.eval --model "
             f"{name}")
-        phase_entry_point(torch, fn, card, model, name,
-                          rate if name == "mmformer" else None)
+        k5_by_path[f"eval_cli:{name}"] = phase_entry_point(
+            torch, fn, card, model, name,
+            rate if name == "mmformer" else None)
         if name == "mmformer":
             log("== 6. kernel timing")
             t = phase_timing(torch, fn, errs, peaks)
+            log("== 6b. K5 distance transform and the device scorer")
+            t5 = phase_distance_transform(torch, peaks, sweep_labels)
         del model
         torch.cuda.empty_cache()
 
@@ -1726,6 +1866,7 @@ def main() -> int:
     phase_roofline(torch, fn)
     for k in KERNELS:
         log(f"  {k} launches by path: {by_path[k]}")
+    log(f"  K5 launches by path: {k5_by_path}")
 
     fwd, bwd = ("passion_tpu_torch/csrc/fused_norm.cu",
                 "passion_tpu_torch/csrc/fused_norm_bwd.cu")
@@ -1754,6 +1895,18 @@ def main() -> int:
              launches_by_path=by_path["K4"],
              max_abs_err=errs["K4"], ms=tb["k4"], plain_ms=tb["p4"],
              bound_ms=tb["b4"], bound_by=tb["by4"], library_ms=None),
+        dict(name="K5 distance transform (HD95)", route="cuda",
+             source="passion_tpu_torch/csrc/edt.cu",
+             replaces="passion_tpu/metrics.py:80",
+             launches=k5_by_path["eval_cli:mmformer"],
+             launches_by_path=k5_by_path, launches_per_case=(
+                 k5_by_path["eval_cli:mmformer"] / CLI_CASES),
+             max_abs_err=t5["err"], ms=t5["ms"], plain_ms=t5["plain_ms"],
+             bound_ms=t5["bound_ms"], bound_by=t5["bound_by"],
+             library_ms=None, ms_one_volume=t5["ms_one"],
+             bound_ms_one_volume=t5["bound_ms_one"],
+             scipy_ms_one_volume=t5["scipy_ms"],
+             score_15_masks_ms=t5["score_ms"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",

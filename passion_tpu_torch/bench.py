@@ -26,7 +26,7 @@ seed-0 weights:
   * eval_cli: mask-cases/s of `passion_tpu_torch.eval.main` end to end
     (case loading, staging, sweep, Dice, HD95, CSV) on `EVAL_CASES`
     synthetic 240x240x155 cases, after one untimed sweep of a case; one
-    run, about three minutes, most of it the host's HD95.
+    run, most of it the sweeps (Dice and HD95 are scored on the card).
 
 A rep is timed on the host clock between two `torch.cuda.synchronize()`
 calls. The JSON line carries bench.py's field names: `value` is the rate

@@ -11,10 +11,15 @@ inner: each volume is staged on the card once), or one `infer_labels` per
 mask for an engine without the sweep, then Dice and HD95 per (case, mask).
 It runs one case deep, as the JAX evaluator does: case i + 1 is staged and
 its device work queued before case i's labels are fetched and scored.
-HD95 (four full-volume distance transforms per case and mask) runs in a
-thread pool beside the device work, and after each case the results are
-read back until at most two cases of jobs (and their label volumes) wait
-(JAX evaluator.py:131-138, 196-209). The CSV keeps the
+A sweep engine on a CUDA device scores each case's 15 label volumes on the
+card where the sweep left them (`metrics.score_masks`: Dice from confusion
+matrices, HD95 on K5's distance transforms), on a stream of its own so
+that case i + 1's sweep, already queued, runs meanwhile; the host gets 15
+x 8 numbers a case. Any other engine scores on the host: HD95 (four
+full-volume scipy distance transforms per case and mask) runs in a thread
+pool beside the device work, and after each case the results are read
+back until at most two cases of jobs (and their label volumes) wait (JAX
+evaluator.py:131-138, 196-209). Both write the same CSV. The CSV keeps the
 reference's layout byte for byte: masks in reversed canonical order, a
 mask-name row before each mask's case rows, and the merged 'ET HD95ETPro
 HD95' header cell of the reference's string-concatenation quirk
@@ -26,17 +31,20 @@ the label volumes it scored) for a caller that measures the evaluation.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from passion_tpu_torch.masks import MASK_ARRAY, MASK_NAMES
-from passion_tpu_torch.metrics import AverageMeter, cal_hd95, dice_class4
+from passion_tpu_torch.metrics import AverageMeter, cal_hd95, dice_class4, \
+    score_masks
 
 CLASS_EVALUATION = ("whole", "core", "enhancing", "enhancing_postpro")
 
@@ -65,6 +73,18 @@ class SweepSpans:
                 self.score_s += time.perf_counter() - t
             return out
         return run
+
+
+def _scores_on_device(engine) -> bool:
+    """Whether `run_test_sweep` scores on the engine's card: a sweep engine
+    that hands out its device labels, on a CUDA device."""
+    return hasattr(engine, "device_labels") and engine.device.type == "cuda"
+
+
+def _done(value) -> Future:
+    fut = Future()
+    fut.set_result(value)
+    return fut
 
 
 def _csv_append(csv_name, row):
@@ -145,8 +165,15 @@ def run_test_sweep(test_loader, engine, csv_name=None, masks=None,
     scores = {name: (AverageMeter(), AverageMeter()) for _, name in order}
     n_batches = len(test_loader) if hasattr(test_loader, "__len__") else "?"
     sweep = hasattr(engine, "dispatch_labels")
-    dice, hd95 = ((dice_class4, cal_hd95) if spans is None else
-                  (spans.scored(dice_class4), spans.scored(cal_hd95)))
+    on_device = sweep and _scores_on_device(engine)
+    dice, hd95, masks_scores = ((dice_class4, cal_hd95, score_masks)
+                                if spans is None else
+                                (spans.scored(dice_class4),
+                                 spans.scored(cal_hd95),
+                                 spans.scored(score_masks)))
+    # the card's scoring runs beside the next case's queued sweep
+    side = (torch.cuda.Stream(engine.device)
+            if on_device and engine.device.type == "cuda" else None)
     pending = []  # (mask name, dice row, hd95 future), in emission order
 
     def drain(keep):
@@ -183,15 +210,30 @@ def run_test_sweep(test_loader, engine, csv_name=None, masks=None,
                     spans.sweep_s += time.perf_counter() - t
             if spans is not None and spans.labels is not None:
                 spans.labels.append(labels)
-            for (_, mname), lab in zip(order, labels):
-                _, ev = dice(lab[None], target[k][None])
-                pending.append((mname, ev[0], pool.submit(
-                    hd95, lab, target[k])))
+            if on_device:
+                if target[k].min() < 0 or target[k].max() >= 4:
+                    raise ValueError("scoring on the card takes target "
+                                     "labels 0..3")
+                # fetch_labels has waited for the card to write them
+                with (torch.cuda.stream(side) if side is not None
+                      else contextlib.nullcontext()):
+                    vols = engine.device_labels(staged["labels"][k])
+                    tgt = torch.from_numpy(np.ascontiguousarray(
+                        target[k], np.uint8)).to(vols[0].device)
+                    evs, hds = masks_scores(torch.stack(vols), tgt)
+                scored = [(ev, _done(hd)) for ev, hd in zip(evs, hds)]
+            else:
+                scored = []
+                for lab in labels:
+                    _, ev = dice(lab[None], target[k][None])
+                    scored.append((ev[0], pool.submit(hd95, lab,
+                                                      target[k])))
+            for (_, mname), (ev, fut) in zip(order, scored):
+                pending.append((mname, ev, fut))
                 logging.info(
                     "Subject %d/%s [%s]%20s, DSC: %s", i + 1, n_batches,
                     mname, name, ", ".join(
-                        f"{c}: {v:.4f}"
-                        for c, v in zip(CLASS_EVALUATION, ev[0])))
+                        f"{c}: {v:.4f}" for c, v in zip(CLASS_EVALUATION, ev)))
         # at most two cases of label volumes wait for the pool
         drain(keep=2 * len(order) * len(staged["names"]))
 

@@ -288,20 +288,21 @@ class SlidingWindowSweep(SlidingWindowInference):
         them: one encode, every mask's fuse pass, then on the card one
         non-blocking copy of each label volume into pinned host memory.
         `fetch_labels` of the result waits and returns them, so the host
-        can stage the next case meanwhile."""
+        can stage the next case meanwhile; `device_labels` hands out the
+        volumes on the device."""
 
         def go():
             fts = self.encode_case(prepared)
             labs = [self.labels_device(prepared, fts, m) for m in masks]
             if self.device.type != "cuda":
-                return labs, None
+                return labs, None, labs
             host = torch.empty((len(labs),) + tuple(labs[0].shape),
                                dtype=torch.uint8, pin_memory=True)
             for dst, lab in zip(host, labs):
                 dst.copy_(lab, non_blocking=True)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-            return list(host), done
+            return list(host), done, labs
 
         return self._with_oom_fallback(prepared, go)
 
@@ -309,10 +310,17 @@ class SlidingWindowSweep(SlidingWindowInference):
     def fetch_labels(pending) -> list[np.ndarray]:
         """(H, W, Z) uint8 labels of a `dispatch_labels` result, one per
         mask, once the card has written them."""
-        labs, done = pending
+        labs, done, _ = pending
         if done is not None:
             done.synchronize()
         return [lab.numpy() for lab in labs]
+
+    @staticmethod
+    def device_labels(pending) -> list[torch.Tensor]:
+        """The (H, W, Z) uint8 label tensors of a `dispatch_labels` result
+        on the engine's device, in the order of its masks; after
+        `fetch_labels` the card has written them."""
+        return pending[2]
 
     def sweep_labels(self, prepared, masks) -> list[np.ndarray]:
         """Labels for every mask in `masks`, encoding each window once. All

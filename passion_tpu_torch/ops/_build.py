@@ -111,8 +111,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64,
-                                ctypes.c_int, ctypes.c_float)
+            p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_uint,
+                                     ctypes.c_float)
             signatures = {
                 # dtype, x, rows, n, chunk, vectorized, eps, part, stats,
                 # stream
@@ -128,6 +129,8 @@ def load() -> ctypes.CDLL:
                 # vectorized, slope, stream
                 "pt_inl_bwd_apply": [i32, p, p, p, p, p, i64, i64, i64, i32,
                                      f32, p],
+                # labels, n, h, w, z, class bits, tmp, out, stream
+                "pt_edt_sq": [p, i64, i64, i64, i64, u32, p, p, p],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -321,3 +321,52 @@ def test_trace_reports_every_kernel_of_the_call(card, tmp_path):
     assert got["calls"] == 3  # K1's two launches, K2
     assert got["busy_ms"] == pytest.approx(got["chrome_ms"], rel=0.01)
     assert 0 < got["busy_ms"] <= t["event_ms"] * 1.05
+
+
+@pytest.mark.parametrize("shape", [(3, 24, 20, 16), (2, 7, 1, 5),
+                                   (1, 9, 8, 1), (2, 40, 300, 33)])
+def test_distance_transform_matches_plain(card, shape):
+    """K5 equals its plain version exactly: speckled, face-touching,
+    single-voxel, full and empty volumes, each region; lines longer than
+    256 (W 300) take the kernel's 16-bit envelope."""
+    from passion_tpu_torch.ops import edt
+
+    rng = np.random.default_rng(list(shape))
+    lab = rng.integers(0, 4, shape).astype(np.uint8)
+    lab[0, rng.random(shape[1:]) < 0.3] = 0
+    if shape[0] > 2:
+        lab[1] = 2  # full: the border is the volume's faces
+        lab[2] = 0
+        lab[2, shape[1] // 2, shape[2] // 2, shape[3] // 2] = 3
+    x = torch.from_numpy(lab).cuda()
+    for classes in ((1, 2, 3), (1, 3), (3,), (5,)):  # (5,): empty
+        before = edt.edt_sq.launches
+        got = edt.edt_sq(x, classes)
+        torch.cuda.synchronize()
+        assert edt.edt_sq.launches == before + 1
+        assert torch.equal(got.cpu(), edt.edt_sq_plain(x.cpu(), classes))
+
+
+def test_device_scorer_on_the_card_matches_the_host(card):
+    """`metrics.score_masks` on the card against `dice_class4` (bit for
+    bit) and `cal_hd95` (1e-9) on a speckled, a clean and an empty
+    prediction."""
+    from passion_tpu_torch import metrics
+
+    shape = (40, 36, 34)
+    grid = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    r2 = sum((g - s // 2) ** 2 for g, s in zip(grid, shape))
+    tgt = np.zeros(shape, np.uint8)
+    tgt[r2 <= 144] = 2
+    tgt[r2 <= 64] = 1
+    tgt[r2 <= 36] = 3
+    rng = np.random.default_rng(0)
+    labels = np.stack([rng.integers(0, 4, shape).astype(np.uint8), tgt,
+                       np.roll(tgt, 3, axis=1), np.zeros(shape, np.uint8)])
+    dice, hd = metrics.score_masks(torch.from_numpy(labels).cuda(),
+                                   torch.from_numpy(tgt).cuda())
+    for m in range(len(labels)):
+        _, want = metrics.dice_class4(labels[m][None], tgt[None])
+        np.testing.assert_array_equal(dice[m], want[0])
+        np.testing.assert_allclose(hd[m], metrics.cal_hd95(labels[m], tgt),
+                                   rtol=0, atol=1e-9)
