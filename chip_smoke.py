@@ -3,6 +3,16 @@
 GPU: the quickest proof that the port still starts on the card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --k5 ROOT [ROOT ...]
+
+The second form runs no phase: it times K5 (`ops.edt.edt_sq`) of the
+checkout at each ROOT (this one is `.`; another, such as a `git archive`
+of a parent commit, is any directory holding `passion_tpu_torch/`), each in
+a process of its own and in the order given (parent, change, change,
+parent, to compare two on one card), on the same seeded inputs: a speckled
+batch of 15 240x240x155 volumes and one clean volume (`data.synth`), each
+held to its plain version, then each shape's time as phase 6b takes it and
+each kernel's launch by name. One JSON line a ROOT, then one with all.
 
 Phases (each raises on failure; any failure exits non-zero):
 
@@ -41,7 +51,13 @@ Phases (each raises on failure; any failure exits non-zero):
      volume, exactly; `metrics.score_masks` on the 15 masks against
      `dice_class4` (bit for bit) and `cal_hd95` (1e-9); K5's time at 15
      volumes and at one beside its bound, the plain version's and scipy's
-     for one volume on the host;
+     for one volume on the host; each of K5's two launches (pass A: the
+     border, Z and W; pass B: H) timed by kernel name through
+     torch.profiler at both shapes, beside the bytes a voxel it moves
+     through device memory (in a process of its own, `--k5-one`, on the
+     same batch and volume, whose passes must sum to within 10% of this
+     phase's time); each K5 kernel's registers and shared memory
+     (ptxas `-v` in the build's log, and the launch's dynamic share);
   10, 11. phases 4, 4b and 5 for RFNet (10, 10b, 10c) and M2FTrans (11,
      11b, 11c) at their published widths: each sweep's K1/K2 launches,
      every distinct norm input held against the plain version, the window
@@ -144,7 +160,8 @@ run of each backbone under imported weights, `import:{name}`);
 `launches` is mmFormer's, the first main path. K5's entry counts its
 launches in the three eval CLI runs (`eval_cli:{name}`; `launches` and
 `launches_per_case` are phase 5's) and adds its time at one volume beside
-scipy's (`scipy_ms_one_volume`) and the 15-mask scorer's.
+scipy's (`scipy_ms_one_volume`), the 15-mask scorer's, each pass's time
+(`passes_ms`, `passes_ms_one_volume`), bytes a voxel and ptxas reading.
 TF32 stays at torch's default (as `passion_tpu_torch.eval` and `.train`
 run) except around the float32 comparisons, where it is off.
 The last two lines are the kernels' JSON record and
@@ -214,10 +231,17 @@ BACKBONES = ("mmformer", "rfnet", "m2ftrans")
 TRAIN_STEPS = 5  # timed full-width train steps (after 2 untimed ones)
 DP_TURNS = 4  # phase 16: one, dp, dp, one timings of TRAIN_STEPS, repeated
 KERNELS = ("K1", "K2", "K3", "K4")
-# K5: the border test (seven label reads and compares), the two scans'
-# compare-selects, the two envelopes' multiply-adds and compares; counted
-# at the float32 rate (the guide's table has no int32 rate)
-K5_OPS_PER_VOXEL = 30
+# K5: the border test (seven label reads and compares, a ballot), the
+# search of the Z row's border words (a few bit operations), and in each of
+# the W and H envelopes a step of one lane (a compare, and for a parabola
+# kept an exact division: a float estimate and multiply-compares) and four
+# lanes' evaluations of (u - s)^2 + g with two shuffles' mins; counted at
+# the float32 rate (the guide's table has no int32 rate)
+K5_OPS_PER_VOXEL = 80
+# K5's two passes: the bytes a voxel each moves through device memory (pass
+# A reads the labels and writes int32; the planes h - 1 and h + 1 come from
+# L2; pass B reads and writes the int32 in place)
+K5_PASS_BYTES = {"edt_pass_a": 5, "edt_pass_b": 8}
 
 
 def log(msg: str) -> None:
@@ -280,6 +304,63 @@ def kernel_bound(call, n_ops: float, peaks: dict) -> tuple[float, str]:
                                             peaks["hbm"])
     return max(t_comp, t_mem) * 1e3, ("bytes" if bound == "mem"
                                       else "operations")
+
+
+def device_kernels_ms(fn, reps: int) -> dict[str, float]:
+    """{kernel name: device ms a call} over `reps` calls of `fn` under
+    torch.profiler, as `profile.kernel_times` reads a trace: each kernel's
+    mean over its own records times its launches a call (its records over
+    `reps`, rounded), so that a record the tracer lost does not lower it.
+    The session first traces one call it then drops (warm-up step), as
+    `profile.trace` does: the tracer can lose a session's first device
+    records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    out = {}
+    for e in prof.key_averages():
+        # the session's step ranges show on the device timeline too, over
+        # the kernels: skip them
+        if e.device_type != DeviceType.CUDA or e.count == 0 or getattr(
+                e, "is_user_annotation", False) or e.key.startswith(
+                    "ProfilerStep"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:  # older torch
+            us = e.self_cuda_time_total
+        out[e.key] = us / 1e3 / e.count * max(1, round(e.count / reps))
+    return out
+
+
+def ptxas_kernels(build_log: str, part: str) -> dict[str, dict]:
+    """{mangled kernel name: {registers, static_smem}} from `nvcc -Xptxas
+    -v`'s output, for the kernels whose name holds `part`."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and part in name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = dict(registers=int(m.group(1)),
+                             static_smem=int(smem.group(1)) if smem else 0)
+            name = None
+    return out
 
 
 def reset_counts(fn) -> None:
@@ -657,7 +738,7 @@ def phase_distance_transform(torch, peaks, labels) -> dict:
 
     from passion_tpu_torch import metrics
     from passion_tpu_torch.data.synth import make_case
-    from passion_tpu_torch.ops import edt
+    from passion_tpu_torch.ops import _build, edt
 
     errs = []  # max abs difference of every comparison (all must be 0)
 
@@ -713,6 +794,48 @@ def phase_distance_transform(torch, peaks, labels) -> dict:
     ms = kernel_ms(lambda: edt.edt_sq(batch, (1, 2, 3)), 10)
     ms_one = kernel_ms(lambda: edt.edt_sq(one, (1, 2, 3)), 10)
     plain_ms = kernel_ms(lambda: edt.edt_sq_plain(batch, (1, 2, 3)), 1, 0)
+    # each launch by kernel name through torch.profiler, in a process of
+    # its own on this batch (a profiler session here can cost a later
+    # phase's trace its first device records)
+    saved = os.path.join(WORK, "k5_batch.npy")
+    np.save(saved, np.stack(labels))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--k5-one", REPO, saved], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"--k5-one failed:\n{proc.stdout}"
+                             f"{proc.stderr[-4000:]}")
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    passes = {}  # kernel: (ms at the batch, ms for one volume)
+    for name, t in run["kernels"].items():
+        short = re.search(r"edt_pass_\w", name)
+        passes[short.group(0) if short else name[:60]] = (
+            t, run["kernels_one"].get(name))
+    if set(passes) != set(K5_PASS_BYTES):
+        raise AssertionError(f"K5's launches ran {sorted(passes)}, not "
+                             f"{sorted(K5_PASS_BYTES)}")
+    traced = sum(t for t, _ in passes.values())
+    for what, t in (("that process's CUDA events", run["ms"]),
+                    ("this phase's CUDA events", ms)):
+        if not math.isclose(traced, t, rel_tol=0.1):
+            raise AssertionError(f"K5's traced launches ({traced:.4f} ms) "
+                                 f"and {what} ({t:.4f} ms) disagree")
+    log(f"  K5 in a process of its own (the same batch and volume): "
+        f"{run['ms']:.4f} ms, one volume {run['ms_one']:.4f} ms; its "
+        f"traced launches {traced:.4f} ms")
+    for name, (t, t_one) in sorted(passes.items()):
+        gbs = K5_PASS_BYTES[name] * batch.numel() / (t * 1e-3) / 1e9
+        log(f"  K5 {name}: {t:.4f} ms at {tuple(batch.shape)}, {t_one:.4f} "
+            f"ms for one volume; {K5_PASS_BYTES[name]} bytes a voxel "
+            f"through device memory, {gbs:.0f} GB/s at the batch")
+    plan = edt._plan(batch.shape)
+    ptxas = ptxas_kernels(_build.build_log, "edt_pass")
+    for name, p in sorted(ptxas.items()):
+        p["dynamic_smem"] = plan[("a" if "edt_pass_a" in name else "b")
+                                 + "_shared"]
+        log(f"  ptxas {name[-40:]}: {p['registers']} registers, "
+            f"{p['static_smem']} bytes static shared memory; dynamic "
+            f"{p['dynamic_smem']} bytes at {tuple(batch.shape)}")
 
     def bound(x):
         from passion_tpu_torch import roofline
@@ -753,7 +876,10 @@ def phase_distance_transform(torch, peaks, labels) -> dict:
         f"{hd[-1].round(4).tolist()})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 err=max(errs), ms_one=ms_one, bound_ms_one=b_one,
-                scipy_ms=scipy_ms, score_ms=score_ms)
+                scipy_ms=scipy_ms, score_ms=score_ms,
+                passes={k: v[0] for k, v in passes.items()},
+                passes_one={k: v[1] for k, v in passes.items()},
+                ptxas=ptxas)
 
 
 def _ulp_bf16(torch, v):
@@ -1723,7 +1849,77 @@ def phase_roofline(torch, fn) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def k5_one(root: str, saved: str | None = None) -> int:
+    """`--k5-one ROOT [BATCH.npy]`: K5 of the checkout at ROOT on the
+    seeded inputs of `--k5`, or on the (15, 240, 240, 155) uint8 batch
+    saved in BATCH.npy (phase 6b's) in place of the seeded one; one JSON
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device: "
+                         "torch.cuda.is_available() is False")
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from passion_tpu_torch.data.synth import make_case
+    from passion_tpu_torch.ops import edt
+
+    if not edt.__file__.startswith(root):
+        raise AssertionError(f"{edt.__file__} is not under {root}")
+    if saved is None:
+        batch = np.random.default_rng(0).integers(0, 4, (15, *VOLUME)).astype(
+            np.uint8)
+    else:
+        batch = np.load(saved)
+    batch = torch.from_numpy(batch).cuda()
+    one = torch.from_numpy(make_case(VOLUME, np.random.default_rng(1))[1])[
+        None].cuda()
+    for x in (batch, one):
+        for classes in ((1, 2, 3), (3,)):
+            if not torch.equal(edt.edt_sq(x, classes),
+                               edt.edt_sq_plain(x, classes)):
+                raise AssertionError(f"K5 of {root} differs from its plain "
+                                     f"version on {tuple(x.shape)}")
+    run = dict(root=root,
+               ms=kernel_ms(lambda: edt.edt_sq(batch, (1, 2, 3)), 10),
+               ms_one=kernel_ms(lambda: edt.edt_sq(one, (1, 2, 3)), 10),
+               kernels=device_kernels_ms(
+                   lambda: edt.edt_sq(batch, (1, 2, 3)), 5),
+               kernels_one=device_kernels_ms(
+                   lambda: edt.edt_sq(one, (1, 2, 3)), 5))
+    print(json.dumps(run), flush=True)
+    return 0
+
+
+def k5_turns(roots: list[str]) -> int:
+    """`--k5 ROOT ...`: `--k5-one` for each ROOT in turn, each in its own
+    process; their lines, then one JSON line with every run."""
+    from passion_tpu_torch import bench
+
+    card = bench.card_line()
+    log(card)
+    runs = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--k5-one", root], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode:
+            raise SystemExit(f"--k5-one {root} failed:\n{proc.stdout}"
+                             f"{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        r = runs[-1]
+        log(f"  {root}: K5 {r['ms']:.4f} ms at (15, 240, 240, 155), "
+            f"{r['ms_one']:.4f} ms for one volume; by kernel: " + "; ".join(
+                f"{k[:50]} {v:.4f} / {r['kernels_one'].get(k, 0):.4f} ms"
+                for k, v in r["kernels"].items()))
+    log(card)
+    print(json.dumps({"k5_turns": runs}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--k5-one":
+        return k5_one(*sys.argv[2:4])
     if not os.path.isdir(os.path.join(REPO, "passion_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repo "
                          "(passion_tpu_torch/ not found beside it)")
@@ -1733,6 +1929,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
+    if len(sys.argv) > 2 and sys.argv[1] == "--k5":
+        return k5_turns(sys.argv[2:])
     t_start = time.perf_counter()
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -1906,7 +2104,9 @@ def main() -> int:
              library_ms=None, ms_one_volume=t5["ms_one"],
              bound_ms_one_volume=t5["bound_ms_one"],
              scipy_ms_one_volume=t5["scipy_ms"],
-             score_15_masks_ms=t5["score_ms"]),
+             score_15_masks_ms=t5["score_ms"], passes_ms=t5["passes"],
+             passes_ms_one_volume=t5["passes_one"],
+             bytes_per_voxel=K5_PASS_BYTES, ptxas=t5["ptxas"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",

@@ -6,7 +6,10 @@ rates they turn into `mfu_*`.
 `torch.utils.flop_counter.FlopCounterMode` counts the aten ops the program
 runs: convolutions (grouped ones at their true cost, 2 x out elements x
 in-channels per group x kernel volume), matrix products (and attention,
-where it goes through them) and their backward. Elementwise passes,
+where it goes through them) and their backward. A conv's backward counts
+its data gradient as torch does and its weight gradient equal to its
+forward, once per conv: torch's own formula counts a `groups=g` conv's
+weight gradient g times, so `counter()` replaces it. Elementwise passes,
 reductions, resampling and the hand kernels are not counted: K1-K4 are
 launched through a C interface, not as aten ops, and are memory-bound.
 So a count is the matrix-unit work of the program, as a utilization
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, conv_flop_count
 
 
 class _NoModules:
@@ -44,10 +47,34 @@ class _NoModules:
         return False
 
 
+def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride,
+                        _padding, _dilation, transposed, _output_padding,
+                        groups, output_mask, out_shape, **kwargs) -> int:
+    """`aten.convolution_backward`: the data gradient as torch counts it
+    (a transposed conv of the output gradient), the weight gradient as
+    torch counts it over `groups` (torch's term takes every input channel
+    against every output channel, where a grouped conv pairs each with
+    its own group's only), which equals the conv's forward."""
+    def t(shape):
+        return [shape[1], shape[0], *shape[2:]]
+
+    n = 0
+    if output_mask[0]:
+        n += conv_flop_count(grad_out_shape, w_shape, out_shape[0],
+                             not transposed)
+    if output_mask[1]:
+        a, b = (grad_out_shape, x_shape) if transposed else (x_shape,
+                                                             grad_out_shape)
+        n += conv_flop_count(t(a), t(b), t(out_shape[1])) // groups
+    return n
+
+
 def counter() -> FlopCounterMode:
-    """A FlopCounterMode without its module tracker, to enter around the
+    """A FlopCounterMode without its module tracker, with a conv's weight
+    gradient counted once (`_conv_backward_flop`), to enter around the
     call it counts."""
-    c = FlopCounterMode(display=False)
+    c = FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.convolution_backward: _conv_backward_flop})
     c.mod_tracker = _NoModules()
     return c
 

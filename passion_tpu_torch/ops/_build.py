@@ -129,8 +129,10 @@ def load() -> ctypes.CDLL:
                 # vectorized, slope, stream
                 "pt_inl_bwd_apply": [i32, p, p, p, p, p, i64, i64, i64, i32,
                                      f32, p],
-                # labels, n, h, w, z, class bits, tmp, out, stream
-                "pt_edt_sq": [p, i64, i64, i64, i64, u32, p, p, p],
+                # labels, n, h, w, z, class bits, a_threads, a_shared,
+                # b_shared, out, stream
+                "pt_edt_sq": [p, i64, i64, i64, i64, u32, i32, i64, i64, p,
+                              p],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -36,6 +36,19 @@ def test_grouped_conv_counts_its_true_work():
     assert flops.count(lambda: conv(x)) == 2 * 8 ** 3 * 32 * 8 * 27 == 7077888
 
 
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_grouped_conv_backward_counts_the_weight_gradient_once(groups):
+    """Forward plus backward of a conv whose input needs a gradient is 3x
+    its forward: the data and the weight gradient each equal the forward,
+    whatever `groups` is (torch's own formula counts the weight gradient
+    `groups` times)."""
+    conv = Conv3d(32, 32, 3, groups=groups)
+    x = torch.zeros(1, 32, 8, 8, 8, requires_grad=True)
+    fwd = flops.count(lambda: conv(x))
+    assert fwd == 2 * 8 ** 3 * 32 * (32 // groups) * 27
+    assert flops.count(lambda: conv(x).sum().backward()) == 3 * fwd
+
+
 def test_attention_counts_its_matmuls():
     """qkv (C -> 3C), q k^T and attn v over every head, and the projection:
     8 B N C^2 + 4 B N^2 C."""

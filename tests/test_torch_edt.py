@@ -6,7 +6,10 @@ Dice within 1e-6); the histogram
 percentile against `np.percentile`; and `run_test_sweep`'s device-scoring
 branch, driven here with the plain versions on CPU tensors, against its
 host branch (the same CSV bytes and averages). K5 itself runs on the card:
-tests/test_torch_gpu.py holds it to the plain version there."""
+tests/test_torch_gpu.py holds it to the plain version there; here its
+launch geometry (`ops.edt._plan`) is held to the card's limits for every
+shape K5 is given, and the wrapper's limits are checked one voxel beyond
+each."""
 
 import csv
 
@@ -91,6 +94,74 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
         edt.edt_sq(lab.long(), (3,))
     with pytest.raises(ValueError):
         edt.edt_sq(lab, ())
+
+
+# every shape K5 is given today: BraTS volumes one at a time and as the
+# scorer's 15-mask batch, chip_smoke.py's phase 6b and the gpu tests
+# (tests/test_torch_gpu.py), among them the planes that only just fit
+USED_SHAPES = [(1, 240, 240, 155), (2, 240, 240, 155), (15, 240, 240, 155),
+               (3, 24, 20, 16), (2, 7, 1, 5), (1, 9, 8, 1), (2, 40, 300, 33),
+               (2, 5, 240, 234), (1, 4, 300, 126), (3, 7, 24, 40)]
+
+
+@pytest.mark.parametrize("shape", USED_SHAPES)
+def test_plan_fits_the_card(shape):
+    """`_plan`'s launch geometry fits an sm_90 block: shared memory within
+    232,448 bytes, whole warps, at most 1024 threads, whole groups of
+    `LANES` threads a line; one block a plane in pass A and one a run of
+    `b_lines` (w, z) offsets in pass B."""
+    n, h, w, z = shape
+    edt._check(torch.empty(shape, dtype=torch.uint8))
+    plan = edt._plan(shape)
+    assert edt.MAX_SHARED == 232_448
+    for part in ("a", "b"):
+        threads, shared = plan[f"{part}_threads"], plan[f"{part}_shared"]
+        assert 0 < shared <= edt.MAX_SHARED, part
+        assert 32 <= threads <= 1024 and threads % 32 == 0, part
+        assert threads % edt.LANES == 0, part
+    assert plan["a_threads"] <= edt.A_THREADS
+    assert plan["a_blocks"] == n * h
+    assert plan["b_threads"] == plan["b_lines"] * edt.LANES
+    assert plan["b_blocks"] == n * -(-w * z // plan["b_lines"])
+    # pass A's shared memory: the three label planes, or the 16-bit Z
+    # distances and the W envelopes; the border bits; the mbarrier
+    assert plan["a_shared"] >= max(3 * w * z, 4 * w * z) + 16
+
+
+def _largest_z(w):
+    z = 1
+    while edt._plan((1, 2, w, z + 1))["a_shared"] <= edt.MAX_SHARED:
+        z += 1
+    return z
+
+
+@pytest.mark.parametrize("name", ["H", "W", "Z", "plane", "plane, W > 256"])
+def test_wrapper_raises_just_beyond_each_limit(name):
+    """At each limit `_check` takes the shape; one voxel beyond it the
+    wrapper raises ValueError, on any device, before any work."""
+    at, beyond = {
+        "H": ((1, edt.MAX_H, 1, 1), (1, edt.MAX_H + 1, 1, 1)),
+        "W": ((1, 1, edt.MAX_W, 1), (1, 1, edt.MAX_W + 1, 1)),
+        "Z": ((1, 1, 1, edt.MAX_Z), (1, 1, 1, edt.MAX_Z + 1)),
+        "plane": ((1, 2, 240, _largest_z(240)),
+                  (1, 2, 240, _largest_z(240) + 1)),
+        "plane, W > 256": ((1, 2, 300, _largest_z(300)),
+                           (1, 2, 300, _largest_z(300) + 1)),
+    }[name]
+    edt._check(torch.empty(at, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        edt.edt_sq(torch.zeros(beyond, dtype=torch.uint8), (1, 2, 3))
+
+
+def test_limits_take_the_brats_plane_with_room():
+    """A 240 x 240 x 155 case's plane takes under two thirds of a block's
+    shared memory in pass A, and its 32 H lines under a quarter in pass
+    B, so four blocks share an SM."""
+    plan = edt._plan((15, 240, 240, 155))
+    assert plan["a_shared"] == 153_616
+    assert plan["a_shared"] <= 2 / 3 * edt.MAX_SHARED
+    assert 4 * (plan["b_shared"] + 1024) <= 233_472
+    assert _largest_z(240) > 155 and _largest_z(300) > 33
 
 
 def _target(shape):

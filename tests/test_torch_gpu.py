@@ -324,11 +324,16 @@ def test_trace_reports_every_kernel_of_the_call(card, tmp_path):
 
 
 @pytest.mark.parametrize("shape", [(3, 24, 20, 16), (2, 7, 1, 5),
-                                   (1, 9, 8, 1), (2, 40, 300, 33)])
+                                   (1, 9, 8, 1), (2, 40, 300, 33),
+                                   (2, 5, 240, 234), (1, 4, 300, 126),
+                                   (2, 240, 240, 155), (3, 7, 24, 40)])
 def test_distance_transform_matches_plain(card, shape):
     """K5 equals its plain version exactly: speckled, face-touching,
     single-voxel, full and empty volumes, each region; lines longer than
-    256 (W 300) take the kernel's 16-bit envelope."""
+    256 (W 300) take the kernel's 16-bit envelope; W x Z planes that only
+    just fit pass A's shared memory (240 x 234, 300 x 126); two BraTS
+    volumes; and 21 planes, an odd count (pass A takes one plane a
+    block)."""
     from passion_tpu_torch.ops import edt
 
     rng = np.random.default_rng(list(shape))
