@@ -22,17 +22,28 @@ Phases (each raises on failure; any failure exits non-zero):
      sm_90a);
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes (75 windows), plus the large-mean case against float64;
+  3c. K6, the reflect pad (`ops.pad.reflect_pad3d`), against its plain
+     version bit for bit at the sweeps' pad inputs ((75, 32, 80^3), (75,
+     16, 80^3), (75, 64, 40^3), (75, 512, 5^3) bf16), one float32 shape,
+     axes shorter than the pad and float64 (a float64 train step's raw
+     image); at the first five, K6, the plain
+     version and `F.pad(mode="reflect")` timed as phase 6 times K1/K2,
+     beside K6's byte bound;
   4. main path: the full-width mmFormer 15-mask sliding-window sweep of one
      240x240x155 case in bf16, with every kernel's launch count read
-     around it; in that sweep, the first input of every distinct shape the
-     model hands the norm is held against the plain version; the kernel
+     around it (K1/K2 and K6 against the counts from the code,
+     `multichip.PAD_SITES` for K6); in that sweep, the first input of
+     every distinct shape the model hands the norm is held against the
+     plain version; the kernel
      path against the plain-norm path in float32 on two windows; encode /
      fuse / sweep times and peak memory;
   4b. profile (`passion_tpu_torch.profile`): torch.profiler over one
      encode and one fuse pass of the same case, after the timed sweeps:
      device busy share and kernel time by name, beside CUDA events around
      the same call; the kernel table's sum must agree with the chrome
-     trace within 1% and fill 0.9 of the time between the events;
+     trace within 1% and fill 0.9 of the time between the events; no pad
+     kernel of torch's runs, and K6's share of a sweep's kernel time
+     (one encode, 15 fuse passes) is printed;
   5. entry point: `passion_tpu_torch.eval.main` on 2 synthetic 240x240x155
      cases, timed end to end as `bench --eval_cli` times it (loading,
      staging, sweeps, Dice and HD95 scored on the card, CSV): mask-cases/s
@@ -157,7 +168,9 @@ batch, phase 16's timed data-parallel steps and sharded sweep, rank 0's
 float32 step and sharded sweep in phase 16b (`multichip_step:{name}`,
 `multichip_sweep:{name}`, counted in that rank's process), phase 17's
 run of each backbone under imported weights, `import:{name}`);
-`launches` is mmFormer's, the first main path. K5's entry counts its
+`launches` is mmFormer's, the first main path. K6's entry adds its time
+at each timed shape (`by_shape`) and its share of each sweep's kernel
+time in phases 4b, 10b, 11b (`sweep_kernel_share`). K5's entry counts its
 launches in the three eval CLI runs (`eval_cli:{name}`; `launches` and
 `launches_per_case` are phase 5's) and adds its time at one volume beside
 scipy's (`scipy_ms_one_volume`), the 15-mask scorer's, each pass's time
@@ -231,6 +244,23 @@ BACKBONES = ("mmformer", "rfnet", "m2ftrans")
 TRAIN_STEPS = 5  # timed full-width train steps (after 2 untimed ones)
 DP_TURNS = 4  # phase 16: one, dp, dp, one timings of TRAIN_STEPS, repeated
 KERNELS = ("K1", "K2", "K3", "K4")
+COUNTED = KERNELS + ("K6",)  # the kernels `counts` reads
+# phase 3c: K6's shapes (the sweeps' pad inputs at a window batch of 75,
+# one float32 shape, axes shorter than the pad, float64 at the raw image
+# of a train step, which `benchmark/limits.py` runs in float64), and the
+# pad; the first five are timed
+PAD_CASES = (((WINDOWS, 32, 80, 80, 80), "bfloat16", 1),
+             ((WINDOWS, 16, 80, 80, 80), "bfloat16", 1),
+             ((WINDOWS, 64, 40, 40, 40), "bfloat16", 1),
+             ((WINDOWS, 512, 5, 5, 5), "bfloat16", 1),
+             ((4, 32, 80, 80, 80), "float32", 1),
+             ((1, 8, 1, 2, 3), "bfloat16", 1),
+             ((2, 3, 1, 1, 1), "bfloat16", 1),
+             ((2, 3, 1, 1, 1), "float32", 1),
+             ((2, 3, 5, 4, 3), "bfloat16", 4),
+             ((1, 4, 80, 80, 80), "float64", 1),
+             ((2, 3, 1, 2, 3), "float64", 2))
+PAD_TIMED = 5
 # K5: the border test (seven label reads and compares, a ballot), the
 # search of the Z row's border words (a few bit operations), and in each of
 # the W and H envelopes a step of one lane (a compare, and for a parabola
@@ -364,13 +394,18 @@ def ptxas_kernels(build_log: str, part: str) -> dict[str, dict]:
 
 
 def reset_counts(fn) -> None:
-    for w in fn.WRAPPERS:
+    from passion_tpu_torch.ops import pad
+
+    for w in fn.WRAPPERS + (pad.reflect_pad3d,):
         w.launches = 0
 
 
 def counts(fn) -> dict[str, int]:
-    """Launch counts of K1-K4 (fn.WRAPPERS is in that order)."""
-    return {k: w.launches for k, w in zip(KERNELS, fn.WRAPPERS)}
+    """Launch counts of K1-K4 (fn.WRAPPERS is in that order) and K6."""
+    from passion_tpu_torch.ops import pad
+
+    return {k: w.launches for k, w in zip(COUNTED, fn.WRAPPERS + (
+        pad.reflect_pad3d,))}
 
 
 @contextlib.contextmanager
@@ -485,6 +520,53 @@ def phase_kernels(torch, fn):
     return err
 
 
+def phase_pad(torch, peaks) -> dict:
+    """Phase 3c: K6 (`ops.pad.reflect_pad3d`) against its plain version bit
+    for bit (`torch.equal`: it is a copy) at PAD_CASES; then at the first
+    PAD_TIMED shapes K6, the plain version and `F.pad(mode="reflect")`,
+    each the median of launches queued behind a device-side wait
+    (`kernel_ms`), beside K6's bound: x read and y written once (the bytes
+    its wrapper hands `roofline.ByteCounter`) over the card's HBM rate."""
+    import torch.nn.functional as F
+
+    from passion_tpu_torch.ops import pad
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows, err = [], 0.0
+    for i, (shape, dt, p) in enumerate(PAD_CASES):
+        x = torch.randn(shape, generator=g, device="cuda").to(
+            getattr(torch, dt))
+        before = pad.reflect_pad3d.launches
+        with torch.inference_mode():
+            y = pad.reflect_pad3d(x, p)
+            want = pad.reflect_pad3d_plain(x, p)
+        torch.cuda.synchronize()
+        if pad.reflect_pad3d.launches != before + 1:
+            raise AssertionError("K6 did not launch")
+        err = max(err, (y.float() - want.float()).abs().max().item())
+        if not torch.equal(y, want):
+            raise AssertionError(f"K6 differs from its plain version on "
+                                 f"{shape} {dt} pad {p}: max {err}")
+        line = f"  {shape} {dt} pad {p}: K6 equal to the plain version"
+        if i < PAD_TIMED:
+            with torch.inference_mode():
+                ms = kernel_ms(lambda: pad.reflect_pad3d(x, p), 10)
+                plain = kernel_ms(lambda: pad.reflect_pad3d_plain(x, p), 5)
+                lib = kernel_ms(lambda: F.pad(x, (p,) * 6, mode="reflect"),
+                                5)
+                bound, by = kernel_bound(lambda: pad.reflect_pad3d(x, p), 0,
+                                         peaks)
+            rows.append(dict(shape=shape, dtype=dt, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=bound, bound_by=by))
+            line += (f"; K6 {ms:.4f} ms ({bound / ms:.3f} of its bound "
+                     f"{bound:.4f} ms, {by}), plain {plain:.4f} ms, F.pad "
+                     f"{lib:.4f} ms ({bound / lib:.3f} of the bound)")
+        log(line)
+        del x, y, want
+    torch.cuda.empty_cache()
+    return dict(rows[0], rows=rows, err=err)
+
+
 def phase_main_path(torch, fn, card, err, name, model=None):
     """Phases 4, 10, 11 (and 17): the full-width 15-mask sweep of one
     240x240x155 case by backbone `name`, with `model`'s weights if given
@@ -492,6 +574,7 @@ def phase_main_path(torch, fn, card, err, name, model=None):
     the model, the launches, the engine, the prepared case, the labels
     and the timed sweeps' mask-cases/s."""
     from passion_tpu_torch import bench
+    from passion_tpu_torch.multichip import PAD_SITES
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.masks import MASK_ARRAY
     from passion_tpu_torch.models import get_model, init_model
@@ -520,12 +603,15 @@ def phase_main_path(torch, fn, card, err, name, model=None):
     launches = counts(fn)
     chunks = -(-n_win // prepared["window_batch"])
     expect = chunks * (sites["encode"] + 15 * sites["fuse"])
+    pads = chunks * (PAD_SITES[name]["encode"] +
+                     15 * PAD_SITES[name]["fuse"])
     log(f"  first sweep (cuDNN set-up and the on-path check included) "
         f"{first_s:.3f} s; launches {launches} (expected {expect} of K1 "
-        f"and K2, none of K3/K4)")
-    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
+        f"and K2, none of K3/K4, {pads} of K6)")
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0,
+                    "K6": pads}:
         raise AssertionError(f"launches {launches}, expected {expect} of "
-                             f"K1 and K2")
+                             f"K1 and K2, {pads} of K6")
     log(f"  on-path check: {len(seen)} distinct norm inputs, each held "
         f"against the plain version on the sweep's own tensor:")
     for (shape, dt, pg), (calls, e1, e2) in seen.items():
@@ -611,7 +697,9 @@ def phase_profile(torch, engine, prepared, card, name):
     also fill MIN_TRACED of the time between CUDA events around the call:
     these programs keep the card busy, so a trace that lost kernels reads
     less. Tracing is on only here and in 7b, so no other phase pays for
-    it."""
+    it. No pad kernel of torch's may run (K6 pads every input), and K6's
+    share of a sweep's kernel time (one encode and 15 fuse passes) is
+    returned."""
     from passion_tpu_torch import profile
     from passion_tpu_torch.masks import MASK_ARRAY
 
@@ -623,12 +711,23 @@ def phase_profile(torch, engine, prepared, card, name):
             raise AssertionError(
                 f"{name} {prog}: the trace holds {t['busy_ms']:.3f} ms of "
                 f"kernels for {t['event_ms']:.3f} ms between CUDA events")
+        torch_pads = [k for k in t["kernels"] if "reflection_pad" in k]
+        if torch_pads or not t["pad_ms"]:
+            raise AssertionError(f"{name} {prog}: K6 {t['pad_ms']} ms, "
+                                 f"torch's pad kernels {torch_pads}")
+        return t
 
     mask = np.asarray(MASK_ARRAY[-1])
-    traced("encode", lambda: engine.encode_case(prepared))
+    enc = traced("encode", lambda: engine.encode_case(prepared))
     fts = engine.encode_case(prepared)
-    traced("fuse", lambda: engine.labels_device(prepared, fts, mask))
+    fuse = traced("fuse", lambda: engine.labels_device(prepared, fts, mask))
     del fts
+    share = (enc["pad_ms"] + 15 * fuse["pad_ms"]) / (
+        enc["busy_ms"] + 15 * fuse["busy_ms"])
+    log(f"  K6 {enc['pad_ms']:.3f} ms of the encode's kernels, "
+        f"{fuse['pad_ms']:.3f} ms of a fuse pass's: {share:.4f} of a "
+        f"sweep's kernel time; no pad kernel of torch's")
+    return share
 
 
 def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
@@ -643,9 +742,12 @@ def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
     from passion_tpu_torch.data.synth import make_synthetic_dataset
     from passion_tpu_torch.ops import edt
 
+    from passion_tpu_torch.ops import pad
+
     out = os.path.join(WORK, f"out_{name}")
     timed = engine_rate is not None
     edt.edt_sq.launches = 0  # the CLI's scoring on the card (K5)
+    pad.reflect_pad3d.launches = 0
     if timed:
         n_cases = CLI_CASES
         run = bench.bench_eval_cli(name, n_cases, out=out)
@@ -661,7 +763,7 @@ def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
         port_eval.main(["--model", name, "--resume", ckpt, "--dataroot",
                         data, "--datapath", ".", "--savepath", out])
         launches = (fn.norm_stats.launches, fn.norm_apply.launches)
-    k5 = edt.edt_sq.launches
+    k5, k6 = edt.edt_sq.launches, pad.reflect_pad3d.launches
     with open(os.path.join(out, f"{name}.csv")) as f:
         rows = list(csv.reader(f))
     if rows[0][-1] != "ET HD95ETPro HD95" or len(rows) != 1 + 15 * (
@@ -673,18 +775,18 @@ def phase_entry_point(torch, fn, card, model, name, engine_rate=None):
             not np.isfinite(scores).all():
         raise AssertionError(f"CSV: {len(names)} masks, scores "
                              f"{scores.shape}")
-    if min(launches) <= 0 or k5 <= 0:
+    if min(launches) <= 0 or k5 <= 0 or k6 <= 0:
         raise AssertionError(f"a kernel of the eval path never ran: K1, K2 "
-                             f"{launches}, K5 {k5}")
+                             f"{launches}, K5 {k5}, K6 {k6}")
     log(f"  {name} eval CSV: 15 mask sections x {n_cases} cases, finite "
         f"scores; launches K1 {launches[0]}, K2 {launches[1]}, K5 {k5} "
-        f"(scored on the card)")
+        f"(scored on the card), K6 {k6}")
     if timed:
         log(f"  [{card}] eval CLI end to end: {n_cases} cases x 15 masks in "
             f"{run['seconds']:.3f} s -> {run['rate']:.4f} mask-cases/s; the "
             f"engine alone (phase 4) {[round(r, 4) for r in engine_rate]} "
             f"mask-cases/s")
-    return k5
+    return k5, k6
 
 
 def phase_timing(torch, fn, err, peaks):
@@ -982,6 +1084,7 @@ def phase_train(torch, fn, card, name) -> dict:
     over float32 master params, dropout on where the backbone has it, as
     `fit` runs it."""
     from passion_tpu_torch import bench
+    from passion_tpu_torch.multichip import PAD_SITES
     batch = bench.train_batch()
     ones = torch.ones(4, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1014,10 +1117,13 @@ def phase_train(torch, fn, card, name) -> dict:
         raise AssertionError(f"non-finite loss: {losses}")
     per_step = NORM_SITES[name]["train"]
     expect = TRAIN_STEPS * per_step
+    want = dict.fromkeys(KERNELS, expect)
+    want["K6"] = TRAIN_STEPS * PAD_SITES[name]["train"]
     log(f"  launches over {TRAIN_STEPS} steps {launches} (expected "
-        f"{expect} each: {per_step} norm sites per step)")
-    if launches != {k: expect for k in KERNELS}:
-        raise AssertionError(f"launches {launches}, expected {expect} each")
+        f"{expect} of K1-K4: {per_step} norm sites per step; {want['K6']} "
+        f"of K6)")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
     log(f"  [{card}] {name}: {step_ms:.3f} ms per step -> "
         f"{1e3 / step_ms:.4f} steps/s; peak memory {peak_gib:.2f} GiB; "
         f"losses {[round(v, 4) for v in losses]}")
@@ -1205,6 +1311,7 @@ def phase_single_mask(torch, fn, card, err) -> dict:
     phase-4 case under the full mask, full-width mmFormer, bf16. Folds the
     on-path check's errors into `err`; returns the launches."""
     from passion_tpu_torch import bench
+    from passion_tpu_torch.multichip import PAD_SITES
     from passion_tpu_torch.engine.sliding_window import (
         SlidingWindowInference, SlidingWindowSweep)
     from passion_tpu_torch.masks import MASK_ARRAY
@@ -1223,10 +1330,14 @@ def phase_single_mask(torch, fn, card, err) -> dict:
         labels = engine.infer_labels(prepared, mask)
     launches = counts(fn)
     expect = FORWARD_SITES  # one chunk
+    pads = PAD_SITES["mmformer"]["forward"]
     log(f"  launches {launches} (expected {expect} of K1 and K2: the "
-        f"forward's 14 encoder + 27 fuse-path norm sites per chunk)")
-    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
-        raise AssertionError(f"launches {launches}, expected {expect}")
+        f"forward's 14 encoder + 27 fuse-path norm sites per chunk; {pads} "
+        f"of K6)")
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0,
+                    "K6": pads}:
+        raise AssertionError(f"launches {launches}, expected {expect}, "
+                             f"{pads} of K6")
     for (shape, dt, pg), (calls, e1, e2) in seen.items():
         log(f"    {shape} {dt} phase_group={pg}: {calls} calls; stats err "
             f"{e1:.3g}, output err {e2:.3g}")
@@ -1283,6 +1394,7 @@ def phase_validation(torch, fn, card, err) -> dict:
     (bs 1, 80^3) under all 15 masks, then the train CLI with
     `--use_valid`. Returns the launches of the 15-mask batch."""
     from passion_tpu_torch import bench
+    from passion_tpu_torch.multichip import PAD_SITES
     from passion_tpu_torch import train as port_train
     from passion_tpu_torch.data.synth import make_synthetic_dataset
     from passion_tpu_torch.engine.tb_writer import read_scalars
@@ -1305,10 +1417,14 @@ def phase_validation(torch, fn, card, err) -> dict:
         losses = one_batch()
     launches = counts(fn)
     expect = 15 * VAL_SITES
+    pads = 15 * PAD_SITES["mmformer"]["val"]
     log(f"  launches for one batch under 15 masks {launches} (expected "
-        f"{expect} of K1 and K2, {VAL_SITES} per mask; none of K3/K4)")
-    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
-        raise AssertionError(f"launches {launches}, expected {expect}")
+        f"{expect} of K1 and K2, {VAL_SITES} per mask; none of K3/K4; "
+        f"{pads} of K6)")
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0,
+                    "K6": pads}:
+        raise AssertionError(f"launches {launches}, expected {expect}, "
+                             f"{pads} of K6")
     for (shape, dt, pg), (calls, e1, e2) in seen.items():
         err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
     losses = losses.cpu().numpy()
@@ -1422,10 +1538,11 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
             runs[path]["ms"].append(start.elapsed_time(end) / TRAIN_STEPS)
             if not all(math.isfinite(v.item()) for v in losses):
                 raise AssertionError(f"non-finite {path} loss")
-        expect = TRAIN_STEPS * NORM_SITES["mmformer"]["train"]
-        if out["train"] != {k: expect for k in KERNELS}:
-            raise AssertionError(f"launches {out['train']}, expected "
-                                 f"{expect} each")
+        want = dict.fromkeys(KERNELS, TRAIN_STEPS * NORM_SITES["mmformer"][
+            "train"])
+        want["K6"] = TRAIN_STEPS * multichip.PAD_SITES["mmformer"]["train"]
+        if out["train"] != want:
+            raise AssertionError(f"launches {out['train']}, expected {want}")
         one_ms, dp_ms = runs["one"]["ms"], runs["dp"]["ms"]
         log(f"  [{card}] bf16 step, {TRAIN_STEPS} steps per timing, in turn "
             f"one/dp/dp/one x {DP_TURNS}: one process "
@@ -1464,7 +1581,10 @@ def phase_data_parallel(torch, fn, card, step_ms, sweep_labels) -> dict:
                                                 for m in MASK_ARRAY])
         out["sweep"] = counts(fn)
         differ = [int((g != r).sum()) for g, r in zip(labels, sweep_labels)]
-        if any(differ) or out["sweep"]["K1"] != 18 + 15 * 23:
+        sites, pads = NORM_SITES["mmformer"], multichip.PAD_SITES["mmformer"]
+        if any(differ) or \
+                out["sweep"]["K1"] != sites["encode"] + 15 * sites["fuse"] or \
+                out["sweep"]["K6"] != pads["encode"] + 15 * pads["fuse"]:
             raise AssertionError(f"sharded sweep: {differ} voxels differ, "
                                  f"launches {out['sweep']}")
         log(f"  sharded sweep (world 1, window batch "
@@ -1564,6 +1684,7 @@ def phase_import(torch, fn, card, err, name) -> dict:
     (full mask), every distinct norm input held against the plain
     version. Folds the errors into `err`; returns the launches."""
     from passion_tpu_torch import bench
+    from passion_tpu_torch.multichip import PAD_SITES
     from passion_tpu_torch.engine.sliding_window import SlidingWindowSweep
     from passion_tpu_torch.interop import torch_weights as tw
     from passion_tpu_torch.masks import MASK_ARRAY
@@ -1617,9 +1738,11 @@ def phase_import(torch, fn, card, err, name) -> dict:
     launches = counts(fn)
     chunks = len(fts)
     expect = chunks * (NORM_SITES[name]["encode"] + NORM_SITES[name]["fuse"])
-    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
+    pads = chunks * (PAD_SITES[name]["encode"] + PAD_SITES[name]["fuse"])
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0,
+                    "K6": pads}:
         raise AssertionError(f"launches {launches}, expected {expect} of "
-                             f"K1 and K2")
+                             f"K1 and K2, {pads} of K6")
     if sum(c for c, _, _ in seen.values()) != expect:
         raise AssertionError("norm calls and K1 launches disagree")
     for (shape, dt, pg), (calls, e1, e2) in seen.items():
@@ -1966,9 +2089,12 @@ def main() -> int:
 
     log("== 3. kernels vs plain version")
     errs = phase_kernels(torch, fn)
+    log("== 3c. K6 reflect pad vs plain version, bit for bit; timing")
+    t6 = phase_pad(torch, peaks)
     errs.update(K3=0.0, K4=0.0)
-    by_path = {k: {} for k in KERNELS}  # launches on each backbone's paths
+    by_path = {k: {} for k in COUNTED}  # launches on each backbone's paths
     k5_by_path = {}  # K5's launches in each eval CLI run
+    pad_share = {}  # K6's share of each sweep's kernel time (4b, 10b, 11b)
     title = {"mmformer": "mmFormer", "rfnet": "RFNet", "m2ftrans": "M2FTrans"}
     number = {"mmformer": ("4", "5"), "rfnet": ("10", "10c"),
               "m2ftrans": ("11", "11c")}
@@ -1980,15 +2106,16 @@ def main() -> int:
         if name == "mmformer":
             sweep_labels = labels  # phase 16 holds the sharded sweep to it
         del labels
-        for k in KERNELS:
+        for k in COUNTED:
             by_path[k][f"sweep:{name}"] = launches[k]
         log(f"== {main_no}b. profile: {title[name]}, one encode and one "
             f"fuse pass")
-        phase_profile(torch, engine, prepared, card, name)
+        pad_share[name] = phase_profile(torch, engine, prepared, card, name)
         del engine, prepared
         log(f"== {cli_no}. entry point: passion_tpu_torch.eval --model "
             f"{name}")
-        k5_by_path[f"eval_cli:{name}"] = phase_entry_point(
+        (k5_by_path[f"eval_cli:{name}"],
+         by_path["K6"][f"eval_cli:{name}"]) = phase_entry_point(
             torch, fn, card, model, name,
             rate if name == "mmformer" else None)
         if name == "mmformer":
@@ -2008,7 +2135,7 @@ def main() -> int:
         log(f"== {main_no}. {title[name]} PASSION train step, full width, "
             f"bf16")
         run = phase_train(torch, fn, card, name)
-        for k in KERNELS:
+        for k in COUNTED:
             by_path[k][f"train_steps:{name}"] = run["launches"][k]
         if name == "mmformer":
             mmformer_step_ms = run["step_ms"]
@@ -2040,7 +2167,7 @@ def main() -> int:
     log(f"== 16b. python -m passion_tpu_torch.multichip, "
         f"{min(torch.cuda.device_count(), 4)} card(s)")
     multi = phase_multichip(torch)
-    for k in KERNELS:
+    for k in COUNTED:
         by_path[k]["single_mask:mmformer"] = single[k]
         by_path[k]["val_15_masks:mmformer"] = val[k]
         by_path[k]["train_steps_dp:mmformer"] = dp["train"][k]
@@ -2051,7 +2178,7 @@ def main() -> int:
         "widths; mmFormer's 15-mask sweep under it")
     for name in BACKBONES:
         launches = phase_import(torch, fn, card, errs, name)
-        for k in KERNELS:
+        for k in COUNTED:
             by_path[k][f"import:{name}"] = launches[k]
         torch.cuda.empty_cache()
     log("== 18. preprocessing CLI (split, imbmr) on phase 8's npy root")
@@ -2062,7 +2189,7 @@ def main() -> int:
     log("== 20. python -m passion_tpu_torch.roofline; byte counts on the "
         "card and on the CPU")
     phase_roofline(torch, fn)
-    for k in KERNELS:
+    for k in COUNTED:
         log(f"  {k} launches by path: {by_path[k]}")
     log(f"  K5 launches by path: {k5_by_path}")
 
@@ -2107,6 +2234,15 @@ def main() -> int:
              score_15_masks_ms=t5["score_ms"], passes_ms=t5["passes"],
              passes_ms_one_volume=t5["passes_one"],
              bytes_per_voxel=K5_PASS_BYTES, ptxas=t5["ptxas"]),
+        dict(name="K6 reflect pad", route="cuda",
+             source="passion_tpu_torch/csrc/reflect_pad.cu",
+             replaces="passion_tpu/models/layers.py:181",
+             launches=by_path["K6"]["sweep:mmformer"],
+             launches_by_path=by_path["K6"], max_abs_err=t6["err"],
+             ms=t6["ms"], plain_ms=t6["plain_ms"], bound_ms=t6["bound_ms"],
+             bound_by=t6["bound_by"], library_ms=t6["library_ms"],
+             shape=list(t6["shape"]), by_shape=t6["rows"],
+             sweep_kernel_share=pad_share),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",

@@ -21,7 +21,6 @@ float32 on through the rest of the model.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,6 +28,7 @@ from torch import nn
 from passion_tpu_torch import losses
 from passion_tpu_torch.ops import fused_norm
 from passion_tpu_torch.ops.attn_mask import cross_key_bias
+from passion_tpu_torch.ops.pad import reflect_pad3d
 from passion_tpu_torch.ops.resize import upsample_trilinear
 
 NUM_MODALS = 4
@@ -122,8 +122,9 @@ def mask_kernel_rows(weight: torch.Tensor, in_mask: torch.Tensor,
 
 class Conv3d(nn.Module):
     """3-D conv with torch-style explicit reflect or zero padding
-    (layers.py:148-227). `groups=4` on modality-major channels is four
-    independent per-modality convs."""
+    (layers.py:148-227): reflect padding is `ops.pad.reflect_pad3d` (K6 on
+    the card without autograd), zero padding cuDNN's own. `groups=4` on
+    modality-major channels is four independent per-modality convs."""
 
     def __init__(self, in_channels: int, out_channels: int, k_size: int = 3,
                  stride: int = 1, padding: int = 1, pad_type: str = "reflect",
@@ -151,18 +152,6 @@ class Conv3d(nn.Module):
             x = reflect_pad3d(x, pad)
             pad = 0
         return F.conv3d(x, w, self.bias, self.stride, pad, 1, self.groups)
-
-
-def reflect_pad3d(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """numpy/jnp "reflect" padding of the three spatial axes. torch's
-    reflect mode needs pad < size; an axis too short for it (the 1-voxel
-    bottleneck of a 16-voxel patch) takes numpy's indices instead."""
-    if min(x.shape[2:]) > pad:
-        return F.pad(x, (pad,) * 6, mode="reflect")
-    for dim in (2, 3, 4):
-        idx = np.pad(np.arange(x.shape[dim]), pad, mode="reflect")
-        x = x.index_select(dim, torch.from_numpy(idx).to(x.device))
-    return x
 
 
 class GeneralConv3dPreNorm(nn.Module):

@@ -21,7 +21,8 @@ weights, `init_model`) the ranks run:
          (`bench.train_setup`): loss rtol 1e-5; summed gradients relative
          L2 5e-3 over all tensors and 2e-2 per tensor (5e-2 for RFNet's
          ModalFusion); every rank's updated params equal rank 0's; K1-K4
-         launches per rank those of one step on one card (53 / 70 / 55);
+         launches per rank those of one step on one card (53 / 70 / 55),
+         K6's 1 (the raw image's pad);
   time   the bf16 step as `fit` runs it (dropout on; RFNet has none): N
          ranks at bs 1 each against one process at bs 1 on rank 0's card,
          timed in turns (one, dp, dp, one, ...); global samples/s, each
@@ -34,9 +35,10 @@ weights, `init_model`) the ranks run:
          so only the order of the float32 sums differs: coverage-averaged
          probabilities atol 1e-5; labels equal wherever the one card's top
          two probabilities are more than 1e-5 apart (the voxels below that
-         margin that differ are counted); K1/K2 launches per rank those of
-         its chunks (363 / 747 / 435 for one chunk); then mask-cases/s
-         against one card at its own automatic batch (75), in turns;
+         margin that differ are counted); K1/K2 and K6 launches per rank
+         those of its chunks (363 / 747 / 435 and 135 / 282 / 195 for one
+         chunk); then mask-cases/s against one card at its own automatic
+         batch (75), in turns;
          encode ms and mean fuse-pass ms (with its all-reduce) per rank;
          the 142.8 MB accumulator's all-reduce alone; each rank's peak
          memory.
@@ -92,19 +94,31 @@ from passion_tpu_torch.engine.sliding_window import (SlidingWindowSweep,
 from passion_tpu_torch.engine.train_loop import _to_device
 from passion_tpu_torch.masks import MASK_ARRAY
 from passion_tpu_torch.ops import _build
-from passion_tpu_torch.ops import fused_norm
+from passion_tpu_torch.ops import fused_norm, pad
 from passion_tpu_torch.parallel import world as pw
 from passion_tpu_torch.parallel.world import GradBuffer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BACKBONES = ("rfnet", "mmformer", "m2ftrans")
 PHASES = ("step", "time", "sweep", "cli")
-KERNELS = ("K1", "K2", "K3", "K4")
+KERNELS = ("K1", "K2", "K3", "K4", "K6")
+WRAPPERS = fused_norm.WRAPPERS + (pad.reflect_pad3d,)  # in KERNELS' order
 # instance_norm_lrelu calls of each backbone, counted from the code: per
 # PASSION train step (each with one backward), per features() chunk and
 # per fuse_inference() chunk
 TRAIN_SITES = {"mmformer": 53, "rfnet": 70, "m2ftrans": 55}
 SWEEP_SITES = {"mmformer": (18, 23), "rfnet": (12, 49), "m2ftrans": (15, 28)}
+# reflect pads run by K6, counted from the code (the one table of them;
+# chip_smoke.py reads it too): per PASSION train step (the encoders' first
+# conv pads the raw image, which needs no gradient; the other pads run
+# under autograd, as autograd's own pad), per features() chunk, per
+# fuse_inference() chunk, per forward (the single-mask engine's chunk) and
+# per validation mask (mmFormer: the forward and the sep decoder)
+PAD_SITES = {
+    "mmformer": dict(train=1, encode=15, fuse=8, forward=23, val=31),
+    "rfnet": dict(train=1, encode=12, fuse=18, forward=30),
+    "m2ftrans": dict(train=1, encode=15, fuse=12, forward=27),
+}
 # the step's tolerances (PERF.md §2): loss rtol; gradients' relative L2
 # over all tensors, per tensor, per tensor of RFNet's ModalFusion
 LOSS_RTOL, GRAD_GLOBAL, GRAD_TENSOR, GRAD_MODAL_FUSION = 1e-5, 5e-3, 2e-2, 5e-2
@@ -269,12 +283,12 @@ def _wall_ms(world, fn) -> float:
 
 
 def _reset_counts() -> None:
-    for w in fused_norm.WRAPPERS:
+    for w in WRAPPERS:
         w.launches = 0
 
 
 def _counts() -> dict:
-    return {k: w.launches for k, w in zip(KERNELS, fused_norm.WRAPPERS)}
+    return {k: w.launches for k, w in zip(KERNELS, WRAPPERS)}
 
 
 def _reset_peak(world) -> None:
@@ -602,12 +616,14 @@ def judge_step(chk, name, n, ranks, cuda) -> dict:
     chk(name, n, "step updated params", max(diffs) == 0.0,
         f"max abs difference from rank 0's, per rank: {diffs}")
     launches = [r["step"]["launches"] for r in ranks]
-    want = TRAIN_SITES[name] if cuda else 0
-    chk(name, n, "step launches", all(l == dict.fromkeys(KERNELS, want)
-                                      for l in launches),
-        f"K1-K4 per rank {[list(l.values()) for l in launches]}, expected "
-        f"{want} each" + ("" if cuda else " (the CPU takes the plain "
-                                          "versions)"))
+    want = dict.fromkeys(KERNELS, 0)
+    if cuda:
+        want.update(dict.fromkeys(KERNELS[:4], TRAIN_SITES[name]),
+                    K6=PAD_SITES[name]["train"])
+    chk(name, n, "step launches", all(l == want for l in launches),
+        f"K1-K4, K6 per rank {[list(l.values()) for l in launches]}, "
+        f"expected {list(want.values())}" + (
+            "" if cuda else " (the CPU takes the plain versions)"))
     return dict(loss=r0["loss"], loss_one=r0["loss_one"],
                 loss_rel=r0["loss_rel"], grad_rel_global=r0["global_rel"],
                 grad_rel_worst=worst[0], worst_tensor=worst[1],
@@ -651,13 +667,16 @@ def judge_sweep(chk, name, n, ranks, cuda, card) -> dict:
         f"are > {MARGIN} apart, {s0['label_diff_narrow']} below that "
         f"margin; {s0['classes']} classes predicted")
     enc, fuse = SWEEP_SITES[name]
+    pads = PAD_SITES[name]
     want = [dict(K1=len(r["sweep"]["chunks"]) * (enc + 15 * fuse),
                  K2=len(r["sweep"]["chunks"]) * (enc + 15 * fuse), K3=0,
-                 K4=0) if cuda else dict.fromkeys(KERNELS, 0) for r in ranks]
+                 K4=0, K6=len(r["sweep"]["chunks"]) * (pads["encode"] +
+                                                       15 * pads["fuse"]))
+            if cuda else dict.fromkeys(KERNELS, 0) for r in ranks]
     launches = [r["sweep"]["launches"] for r in ranks]
     chk(name, n, "sweep launches", launches == want,
-        f"K1-K4 per rank {[list(l.values()) for l in launches]}, expected "
-        f"{[list(w.values()) for w in want]}")
+        f"K1-K4, K6 per rank {[list(l.values()) for l in launches]}, "
+        f"expected {[list(w.values()) for w in want]}")
     one = float(np.median(s0["rate_one"]))
     dp = float(np.median(s0["rate_dp"]))
     out = dict(window_batch=s0["window_batch"],

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: the fused norm kernels and resizing."""
+"""Tensor ops of the port: the fused norm kernels, the reflect pad,
+resizing, attention masks and the distance transform."""

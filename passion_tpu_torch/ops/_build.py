@@ -133,6 +133,8 @@ def load() -> ctypes.CDLL:
                 # b_shared, out, stream
                 "pt_edt_sq": [p, i64, i64, i64, i64, u32, i32, i64, i64, p,
                               p],
+                # dtype, x, y, planes, d, h, w, pad, stream
+                "pt_reflect_pad3d": [i32, p, p, i64, i64, i64, i64, i64, p],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -23,8 +23,8 @@ table and prints one JSON line: the wall time (host clock, ended by a
 synchronize), the time between two CUDA events around the call, the summed
 kernel time and its ratio to the wall time (the device's busy share: the
 port's kernels run on one stream, so they do not overlap), the kernel
-launches, the norm kernels' (K1-K4) time and share, and the `top` kernels
-by device time with their calls.
+launches, the norm kernels' (K1-K4) time and share, the reflect pad's (K6)
+time and share, and the `top` kernels by device time with their calls.
 
 A trace is checked before it is reported: the kernel table's sum must
 agree with the chrome trace's device events within 1%. Both come from
@@ -51,6 +51,7 @@ import torch
 TOP = 15  # kernels listed per trace
 NORM_KERNELS = ("stats_partial_kernel", "stats_merge_kernel", "apply_kernel",
                 "bwd_partial_kernel", "bwd_merge_kernel", "bwd_apply_kernel")
+PAD_KERNEL = "reflect_pad3d_kernel"  # K6 (csrc/reflect_pad.cu)
 MODES = ("sweep", "fuse", "train", "single")
 PRIMERS = 8  # kernels of the untraced warm-up step of a session
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # chrome trace events
@@ -98,13 +99,14 @@ def report_trace(t: dict, label: str, card: str, top: int = TOP) -> dict:
     calls = sum(n for _, n in kernels.values())
     norm = sum(ms for k, (ms, _) in kernels.items()
                if any(s in k for s in NORM_KERNELS))
+    pad = sum(ms for k, (ms, _) in kernels.items() if PAD_KERNEL in k)
     chrome_ms = t["chrome_ms"]
     log(f"  [{card}] {label}: wall {t['wall_ms']:.3f} ms, CUDA events "
         f"{t['event_ms']:.3f} ms, kernels {busy:.3f} ms (busy share "
         f"{busy / t['wall_ms']:.3f}; chrome trace {chrome_ms:.3f} ms), "
         f"{calls} kernel launches; norm "
         f"kernels {norm:.3f} ms ({norm / max(busy, 1e-9):.3f} of kernel "
-        f"time)")
+        f"time), reflect pad K6 {pad:.3f} ms ({pad / max(busy, 1e-9):.3f})")
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
     for name, (ms, n) in ranked:
         log(f"    {ms:9.3f} ms {ms / max(busy, 1e-9):6.3f} x{n:<5d} "
@@ -114,7 +116,7 @@ def report_trace(t: dict, label: str, card: str, top: int = TOP) -> dict:
             f"{label}: the kernel table ({busy:.3f} ms) and the chrome "
             f"trace ({chrome_ms:.3f} ms) disagree")
     return dict(wall_ms=t["wall_ms"], event_ms=t["event_ms"], busy_ms=busy,
-                chrome_ms=chrome_ms, norm_ms=norm, calls=calls,
+                chrome_ms=chrome_ms, norm_ms=norm, pad_ms=pad, calls=calls,
                 kernels=kernels, top=ranked)
 
 
@@ -212,6 +214,8 @@ def main(argv=None) -> int:
         "busy_share": round(t["busy_ms"] / t["wall_ms"], 4),
         "launches": t["calls"], "norm_ms": round(t["norm_ms"], 3),
         "norm_share": round(t["norm_ms"] / max(t["busy_ms"], 1e-9), 4),
+        "pad_ms": round(t["pad_ms"], 3),
+        "pad_share": round(t["pad_ms"] / max(t["busy_ms"], 1e-9), 4),
         "top": [{"name": k, "ms": round(ms, 3), "calls": n}
                 for k, (ms, n) in t["top"]],
         "trace": path, "chip": card}), flush=True)

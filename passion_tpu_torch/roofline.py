@@ -43,11 +43,13 @@ spans (`tensor_bytes`) times the item size:
     destination without reading it;
   * the statistics layer norm saves for its backward count as float32,
     as the card keeps them (the CPU keeps them in a bf16 input's dtype);
-  * the hand kernels K1-K4 count by their own operands: while a counter is
-    active each wrapper of `ops/fused_norm.py` adds its formula's bytes and
-    the counter does not see what it runs (the plain version on the CPU,
-    the allocations on the card), so a count depends on shapes and dtypes
-    only and the CPU's equals the card's.
+  * the hand kernels K1-K4 and K6 count by their own operands (a ctypes
+    launch is unseen by a dispatch mode): while a counter is active each
+    wrapper of `HAND_KERNEL_MODULES` (`ops/fused_norm.py`, `ops/pad.py`)
+    adds its formula's bytes and the counter does not see what it runs
+    (the plain version on the CPU, the allocations on the card), so a
+    count depends on shapes and dtypes only and the CPU's equals the
+    card's.
 
 It is the eager counterpart of XLA's "bytes accessed": what the program
 asks HBM for, op by op. It cannot see what cuDNN moves inside a call (its
@@ -71,9 +73,11 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 
 from passion_tpu_torch import flops
-from passion_tpu_torch.ops import fused_norm
+from passion_tpu_torch.ops import fused_norm, pad
 
 N_MASKS = 15
+# the modules whose wrappers hand an active counter their kernels' bytes
+HAND_KERNEL_MODULES = (fused_norm, pad)
 TOP_OPS = 8  # ops listed by their share of a program's bytes
 # ops that move no data: allocations, and views the schema does not mark
 NO_TRAFFIC = frozenset({
@@ -182,20 +186,27 @@ class ByteCounter(TorchDispatchMode):
         with no counter active and no dispatch mode on (what it runs is not
         counted)."""
         self.add(name, nbytes)
-        fused_norm.byte_counter = None
+        _point(None)
         try:
             with _disable_current_modes():
                 return wrapper(*args)
         finally:
-            fused_norm.byte_counter = self
+            _point(self)
 
     def __enter__(self):
-        self._outer, fused_norm.byte_counter = fused_norm.byte_counter, self
+        self._outer = fused_norm.byte_counter
+        _point(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        fused_norm.byte_counter = self._outer
+        _point(self._outer)
         return super().__exit__(*exc)
+
+
+def _point(counter) -> None:
+    """Make `counter` the one the hand kernels' wrappers report to."""
+    for module in HAND_KERNEL_MODULES:
+        module.byte_counter = counter
 
 
 def count(fn) -> dict:

@@ -214,6 +214,20 @@ def test_kernel_table_skips_ranges_and_host_ops(capsys):
     assert len(lines) == 3
 
 
+def test_kernel_table_reads_the_reflect_pad(capsys):
+    """K6's launches (by its CUDA function's name) are the trace's pad
+    time, apart from the norm kernels'."""
+    events = [_event("void (anonymous namespace)::reflect_pad3d_kernel"
+                     "<unsigned short>(...)", 1.5, 8),
+              _event("void apply_kernel<bf16>", 2.0, 10),
+              _event("cudnn_conv_kernel", 6.5, 3)]
+    t = profile.report_trace(dict(
+        prof=SimpleNamespace(key_averages=lambda: events), wall_ms=11.0,
+        event_ms=10.5, chrome_ms=10.0), "stub", "card")
+    assert (t["pad_ms"], t["norm_ms"], t["busy_ms"]) == (1.5, 2.0, 10.0)
+    assert "reflect pad K6 1.500 ms (0.150)" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("kernels,agrees", [
     ([1.0, 2.0, 5.5], True),  # 9.0 ms with the memset
     ([1.0, 2.0, 5.55], True),  # 0.6% more than the kernel table

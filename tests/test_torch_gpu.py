@@ -1,13 +1,14 @@
 """The port's CUDA kernels on a card: K1 + K2 (forward) and K3 + K4
 (backward) against their plain PyTorch version, at the row shapes of all
 three backbones, the autograd Function's gradient against autograd of the
-plain forward, and the models' kernel path against their plain-norm path,
-for inference (mmFormer, RFNet, M2FTrans), the single-mask engine, the
-validation step and one train step (mmFormer). Marked
-`gpu`; each test decides inside itself whether a card is present and skips
-without one. This file imports torch and the port only (a GPU machine need
-not have JAX), so it runs there without tests/conftest.py, which imports
-JAX:
+plain forward, K6 (the reflect pad) bit for bit at the sweeps' shapes, K5
+(the distance transform) exactly, and the models' kernel path against
+their plain-norm path, for inference (mmFormer, RFNet, M2FTrans), the
+single-mask engine, the validation step and one train step (mmFormer).
+Marked `gpu`; each test decides inside itself whether a card is present
+and skips without one. This file imports torch and the port only (a GPU
+machine need not have JAX), so it runs there without tests/conftest.py,
+which imports JAX:
 
   python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
@@ -321,6 +322,61 @@ def test_trace_reports_every_kernel_of_the_call(card, tmp_path):
     assert got["calls"] == 3  # K1's two launches, K2
     assert got["busy_ms"] == pytest.approx(got["chrome_ms"], rel=0.01)
     assert 0 < got["busy_ms"] <= t["event_ms"] * 1.05
+
+
+# K6's shapes (chip_smoke.py phase 3c): the sweeps' pad inputs at a
+# window batch of 75, one float32 shape, and axes shorter than the pad
+PAD_CASES = [((75, 32, 80, 80, 80), torch.bfloat16, 1),
+             ((75, 16, 80, 80, 80), torch.bfloat16, 1),
+             ((75, 64, 40, 40, 40), torch.bfloat16, 1),
+             ((75, 512, 5, 5, 5), torch.bfloat16, 1),
+             ((4, 32, 80, 80, 80), torch.float32, 1),
+             ((1, 8, 1, 2, 3), torch.bfloat16, 1),
+             ((2, 3, 1, 1, 1), torch.float32, 1),
+             ((2, 3, 5, 4, 3), torch.bfloat16, 4),
+             ((1, 4, 80, 80, 80), torch.float64, 1),
+             ((2, 3, 1, 2, 3), torch.float64, 2)]
+
+
+@pytest.mark.parametrize("shape,dtype,p", PAD_CASES)
+def test_reflect_pad_matches_plain_bit_for_bit(card, shape, dtype, p):
+    """K6 launches once and equals its plain version (F.pad, or numpy's
+    indices on a short axis) bit for bit: it is a copy."""
+    from passion_tpu_torch.ops import pad
+
+    x = torch.randn(shape, generator=card, device="cuda").to(dtype)
+    before = pad.reflect_pad3d.launches
+    with torch.inference_mode():
+        got = pad.reflect_pad3d(x, p)
+    torch.cuda.synchronize()
+    assert pad.reflect_pad3d.launches == before + 1
+    assert torch.equal(got, pad.reflect_pad3d_plain(x, p))
+
+
+def test_reflect_pad_routes_on_the_card(card):
+    """Under autograd the wrapper pads with autograd's own pad (no
+    launch); a view (M2FTrans's channels-last fusion tokens) launches K6
+    on its copy and equals the plain version; the byte count equals the
+    CPU's."""
+    from passion_tpu_torch import roofline
+    from passion_tpu_torch.ops import pad
+
+    x = torch.randn((2, 4, 6, 7, 8), generator=card, device="cuda")
+    before = pad.reflect_pad3d.launches
+    xg = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad(pad.reflect_pad3d(xg, 1).sum(), xg)
+    assert pad.reflect_pad3d.launches == before
+    assert g.shape == x.shape
+    view = x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
+    assert not view.is_contiguous()
+    with torch.inference_mode():
+        got = pad.reflect_pad3d(view, 1)
+    assert pad.reflect_pad3d.launches == before + 1
+    assert torch.equal(got, pad.reflect_pad3d_plain(view, 1))
+    on_card = roofline.count(lambda: pad.reflect_pad3d(x, 1))
+    assert pad.reflect_pad3d.launches == before + 2
+    host = x.cpu()
+    assert on_card == roofline.count(lambda: pad.reflect_pad3d(host, 1))
 
 
 @pytest.mark.parametrize("shape", [(3, 24, 20, 16), (2, 7, 1, 5),

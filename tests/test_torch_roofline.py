@@ -160,10 +160,13 @@ def test_counts_depend_on_shapes_alone(programs, program):
     assert one["bytes"] > 0 and one["flops"] > 0
     assert sum(one["by_op"].values()) == one["bytes"]
     kernels = {k for k in one["by_op"] if k[0] == "K"}
-    assert kernels == ({"K1 norm_stats", "K2 norm_apply"} if program !=
-                       "train" else {"K1 norm_stats", "K2 norm_apply",
-                                     "K3 norm_bwd_stats",
-                                     "K4 norm_bwd_apply"})
+    # K6 pads every input that needs no gradient: all of the sweep's, the
+    # train step's raw images; the rest of the step pads under autograd
+    assert kernels == ({"K1 norm_stats", "K2 norm_apply", "K6 reflect_pad3d"}
+                       if program != "train" else
+                       {"K1 norm_stats", "K2 norm_apply", "K3 norm_bwd_stats",
+                        "K4 norm_bwd_apply", "K6 reflect_pad3d"})
+    assert ("aten.reflection_pad3d" in one["by_op"]) == (program == "train")
 
 
 def test_flops_equal_flops_count():
